@@ -1,0 +1,89 @@
+"""The port's detect CLI: ``python -m yolojax_torch.cli.detect`` end to end
+on the CPU with jax blocked, and the settings it does not port yet, which
+raise instead of being ignored."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from yolojax_torch.cli import detect
+from yolojax_torch.config import load_config
+from yolojax_torch.convert.store import save_network_npz
+from yolojax_torch.models import get_model
+from yolojax_torch.utils.restore import load_weights
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def tiny_setup(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli")
+    model = get_model("yolo2", "tiny", 20)
+    npz = str(tmp / "tiny.npz")
+    save_network_npz(npz, model, model.init(torch.Generator().manual_seed(3),
+                                            64))
+    ini = tmp / "tiny.ini"
+    ini.write_text("[model]\nmodel = yolo2\ninference = tiny\ndim = 64\n"
+                   f"names_file = {REPO}/config/names/voc.txt\n"
+                   "[detect]\nthreshold = 0.005\n")
+    return str(ini), npz, tmp
+
+
+def test_detect_module_entry_point(tiny_setup):
+    import cv2
+
+    ini, npz, tmp = tiny_setup
+    img = str(tmp / "a.png")
+    out = str(tmp / "a_det.png")
+    cv2.imwrite(img, np.random.RandomState(4).randint(0, 256, (90, 120, 3),
+                                                      np.uint8))
+    argv = ["detect", "-c", ini, "--weights", npz, "--image", img,
+            "--out", out, "--device", "cpu"]
+    code = textwrap.dedent(f"""
+        import runpy, sys
+        sys.modules["jax"] = None
+        sys.modules["yolojax"] = None
+        sys.argv = {argv!r}
+        runpy.run_module("yolojax_torch.cli.detect", run_name="__main__")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines and all(line.startswith("a.png: ") for line in lines)
+    assert cv2.imread(out).shape == (90, 120, 3)
+
+
+@pytest.mark.parametrize("override", ["detect.use_int8=1", "detect.use_ema=1",
+                                      "detect.fuse_stem=xla"])
+def test_unported_detect_settings_raise(tiny_setup, override):
+    ini, npz, _ = tiny_setup
+    cfg = load_config([ini], [override])
+    with pytest.raises(NotImplementedError, match=override.split("=")[0]):
+        detect.build_detector(cfg, npz, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--artifact", "m.yjsa"], ["--stdin"],
+                                  ["--data-parallel"]])
+def test_unported_detect_flags_raise(tiny_setup, monkeypatch, flag):
+    ini, npz, _ = tiny_setup
+    monkeypatch.setattr(sys, "argv", ["detect", "-c", ini, "--weights", npz,
+                                      "--image", "a.png", *flag])
+    with pytest.raises(NotImplementedError, match=flag[0]):
+        detect.main()
+
+
+def test_unported_weight_sources_raise(tmp_path):
+    model = get_model("yolo2", "tiny", 20)
+    for path in (str(tmp_path / "w.weights"), str(tmp_path),
+                 str(tmp_path / "model.ckpt-1000")):
+        with pytest.raises(NotImplementedError):
+            load_weights(path, model)
+    with pytest.raises(ValueError, match="unrecognized"):
+        load_weights(str(tmp_path / "w.bin"), model)

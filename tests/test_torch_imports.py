@@ -1,0 +1,70 @@
+"""The port stands alone: every ``yolojax_torch`` module, and what
+``chip_smoke.py`` imports, loads in a process where ``jax`` and ``yolojax``
+cannot be imported; and its entry points refuse to fall back to the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from yolojax_torch.cli.detect import build_detector
+from yolojax_torch.config import load_config
+from yolojax_torch.convert.store import save_network_npz
+from yolojax_torch.models import get_model
+from yolojax_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None       # any `import jax...` now raises
+    sys.modules["yolojax"] = None
+""")
+
+
+def _run_blocked(body: str, *args: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, "-c", _BLOCKED + textwrap.dedent(body), *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_without_jax():
+    proc = _run_blocked("""
+        import importlib, pkgutil
+        import yolojax_torch
+        names = sorted(m.name for m in pkgutil.walk_packages(
+            yolojax_torch.__path__, "yolojax_torch."))
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # its imports; main() runs only as a script
+        loaded = [m for m, mod in sys.modules.items() if mod is not None
+                  and m.split(".")[0] in ("jax", "jaxlib", "yolojax")]
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20  # every module was walked
+
+
+def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    model = get_model("yolo2", "tiny", 20)
+    npz = str(tmp_path / "tiny.npz")
+    save_network_npz(npz, model, model.init(torch.Generator().manual_seed(0),
+                                            64))
+    ini = tmp_path / "t.ini"
+    ini.write_text("[model]\nmodel = yolo2\ninference = tiny\ndim = 64\n")
+    cfg = load_config([str(ini)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_detector(cfg, npz)
+    names, dim, infer = build_detector(cfg, npz, device="cpu")
+    out = infer(np.full((1, 64, 64, 3), 0.5, np.float32))
+    assert out["keep"].shape == (1, 256) and out["boxes"].shape == (1, 256, 4)
