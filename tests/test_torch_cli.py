@@ -60,13 +60,35 @@ def test_detect_module_entry_point(tiny_setup):
     assert cv2.imread(out).shape == (90, 120, 3)
 
 
-@pytest.mark.parametrize("override", ["detect.use_int8=1", "detect.use_ema=1",
-                                      "detect.fuse_stem=xla"])
-def test_unported_detect_settings_raise(tiny_setup, override):
+@pytest.mark.parametrize("overrides", [
+    ["detect.use_int8=1"], ["detect.use_ema=1"],
+    ["detect.use_int8=1", "detect.fuse_stem=xla"],  # the int8 fused stem
+], ids=["detect.use_int8=1", "detect.use_ema=1", "detect.fuse_stem=xla"])
+def test_unported_detect_settings_raise(tiny_setup, overrides):
     ini, npz, _ = tiny_setup
-    cfg = load_config([ini], [override])
-    with pytest.raises(NotImplementedError, match=override.split("=")[0]):
+    cfg = load_config([ini], overrides)
+    with pytest.raises(NotImplementedError, match=overrides[0].split("=")[0]):
         detect.build_detector(cfg, npz, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "auto"])
+def test_detect_fuse_stem(tiny_setup, impl):
+    """detect.fuse_stem: the packed conv (xla) or, on the CPU, the plain
+    version of the stem kernel (pallas, auto); the detections agree with
+    the unfused program within the stem's bf16 rounding."""
+    ini, npz, _ = tiny_setup
+    x = np.random.RandomState(5).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    outs = {}
+    for fuse in ("off", impl):
+        cfg = load_config([ini], [f"detect.fuse_stem={fuse}"])
+        _, _, infer_fn, net, _ = detect.build_serving(cfg, npz, device="cpu")
+        assert (type(net.conv_0).__name__ == "StemLayer") == (fuse != "off")
+        with torch.no_grad():
+            outs[fuse] = infer_fn(net, torch.from_numpy(x))
+    tol = 1e-5 if impl == "xla" else 3e-2
+    np.testing.assert_allclose(outs[impl]["scores"], outs["off"]["scores"],
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("flag", [["--artifact", "m.yjsa"], ["--stdin"],

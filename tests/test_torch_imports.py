@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports, loads in a process where ``jax`` and ``yolojax``
 cannot be imported; and its entry points refuse to fall back to the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -48,7 +49,49 @@ def test_port_imports_without_jax():
         print(len(names))
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 30  # every module was walked
+
+
+def test_eval_and_cache_entry_points_run_without_jax(tmp_path):
+    """``cli.cache`` then ``cli.eval --device cpu`` with the fused stem, in
+    a process where jax and yolojax cannot be imported."""
+    proc = _run_blocked(f"""
+        import json, os, runpy
+        import numpy as np, torch
+        from yolojax_torch.convert.store import save_network_npz
+        from yolojax_torch.data.loader import write_ppm
+        from yolojax_torch.models import get_model
+        tmp = {str(tmp_path)!r}
+        os.makedirs(tmp + "/images")
+        rng = np.random.RandomState(0)
+        images, anns = [], []
+        for i in range(3):
+            write_ppm(f"{{tmp}}/images/{{i}}.ppm",
+                      rng.randint(0, 256, (40 + 8 * i, 64, 3), np.uint8))
+            images.append({{"id": i, "file_name": f"{{i}}.ppm", "width": 64,
+                           "height": 40 + 8 * i}})
+            anns.append({{"id": i + 1, "image_id": i, "category_id": 1,
+                         "bbox": [4, 4, 20, 20], "iscrowd": 0}})
+        with open(tmp + "/ann.json", "w") as f:
+            json.dump({{"images": images, "annotations": anns,
+                       "categories": [{{"id": 1, "name": "aeroplane"}}]}}, f)
+        model = get_model("yolo2", "tiny", 1)
+        save_network_npz(tmp + "/w.npz", model,
+                         model.init(torch.Generator().manual_seed(0), 64))
+        with open(tmp + "/t.ini", "w") as f:
+            f.write("[model]\\nmodel = yolo2\\ninference = tiny\\ndim = 64\\n"
+                    "num_classes = 1\\n[cache]\\nbasedir = " + tmp + "/cache\\n"
+                    "test = coco:" + tmp + "/ann.json:" + tmp + "/images\\n"
+                    "[eval]\\nbatch_size = 2\\n")
+        for mod, extra in (("cache", []), ("eval", [
+                "--weights", tmp + "/w.npz", "--device", "cpu",
+                "detect.fuse_stem=auto"])):
+            sys.argv = [mod, "-c", tmp + "/t.ini", *extra]
+            runpy.run_module("yolojax_torch.cli." + mod, run_name="__main__")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    metrics = json.loads(proc.stdout.splitlines()[-1])
+    assert metrics["num_images"] == 3 and "map" in metrics
 
 
 def test_entry_points_refuse_the_cpu_without_a_card(monkeypatch, tmp_path):

@@ -8,9 +8,11 @@ Port of ``cli/detect.py``. Usage:
   python -m yolojax_torch.cli.detect -c config.ini --weights W.npz \
       --image IMG [--image IMG2 ...] [--out OUT] [--device cpu]
 
-Not ported yet (they raise NotImplementedError): ``--artifact``,
-``--stdin``, ``--data-parallel``, ``detect.use_int8``, ``detect.use_ema``
-and ``detect.fuse_stem`` other than ``off``.
+``detect.fuse_stem`` = ``pallas`` or ``auto`` runs conv0 + pool 1 as the
+CUDA stem kernel (its plain version on the CPU), ``xla`` as the packed conv
+in PyTorch. Not ported yet (they raise NotImplementedError): ``--artifact``,
+``--stdin``, ``--data-parallel``, ``detect.use_int8`` (with or without the
+fused stem) and ``detect.use_ema``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,12 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
-from torch import nn
 
 from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.data.augment import letterbox_host
-from yolojax_torch.eval.evaluator import make_infer_fn
-from yolojax_torch.nn.layers import Network
+from yolojax_torch.data.loader import decode_image
+from yolojax_torch.eval.evaluator import make_infer_fn, serving_weights
+from yolojax_torch.nn.stem import fuse_stem
 from yolojax_torch.utils.cli import make_parser, setup
 from yolojax_torch.utils.device import resolve_device
 from yolojax_torch.utils.restore import load_weights
@@ -43,29 +45,11 @@ def _check_ported(cfg) -> None:
     if d.use_ema:
         raise NotImplementedError("detect.use_ema: Orbax checkpoints are not "
                                   "ported yet (ROADMAP queue 1)")
-    if d.fuse_stem != "off":
-        raise NotImplementedError(
-            f"detect.fuse_stem={d.fuse_stem}: the fused stem is not ported "
-            "yet (ROADMAP queue 2, kernel 2)")
-
-
-def _serving_weights(net: Network, device: torch.device,
-                     dtype: torch.dtype) -> Network:
-    """Move ``net`` to ``device`` with conv/dense kernels stored once in
-    the compute dtype (conv kernels channels_last); biases stay f32. The
-    forward casts kernels to the compute dtype anyway, so this only saves
-    the per-call cast."""
-    net = net.to(device).requires_grad_(False).eval()
-    for layer in net.children():
-        w = layer.w.detach().to(dtype)
-        if w.dim() == 4:
-            w = w.contiguous(memory_format=torch.channels_last)
-        layer.w = nn.Parameter(w, requires_grad=False)
-    return net
 
 
 def build_serving(cfg, weights_path: str, *, device=None):
-    """Load weights, fold BN and bind the serving program. Returns
+    """Load weights, fold BN, fuse the stem (``detect.fuse_stem``) and bind
+    the serving program. Returns
     (names, dim, infer_fn(net, images), net, device): bf16 convs on the
     card, f32 on the CPU."""
     _check_ported(cfg)
@@ -75,8 +59,9 @@ def build_serving(cfg, weights_path: str, *, device=None):
     dim = cfg.model.dim
     net = load_weights(weights_path, model)
     model, net = fold_bn(model, net, eps=cfg.model.bn_eps)
+    model, net = fuse_stem(model, net, impl=cfg.detect.fuse_stem)
     compute = torch.float32 if device.type == "cpu" else torch.bfloat16
-    net = _serving_weights(net, device, compute)
+    net = serving_weights(net, device, compute)
     infer_fn = make_infer_fn(
         model, score_thresh=cfg.detect.threshold,
         iou_thresh=cfg.detect.nms_iou, top_k=cfg.detect.top_k,
@@ -102,12 +87,10 @@ def build_detector(cfg, weights_path: str, device=None):
 
 
 def _read_rgb(path: str) -> np.ndarray:
-    import cv2
-
-    img = cv2.imread(path)
-    if img is None:
+    try:
+        return decode_image(path)
+    except FileNotFoundError:
         raise SystemExit(f"unreadable image: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 def _extract(out, k, tf, raw_shape, names):
@@ -142,10 +125,11 @@ def run_detect(cfg, weights_path: str,
                images: Sequence[Union[str, np.ndarray]],
                out_path: Optional[str] = None, show: bool = False,
                device=None, detector=None):
-    """Detect on ``images``: file paths (read with cv2) or decoded HWC RGB
-    arrays. Prints one ``label: name score [x0, y0, x1, y1]`` line per
-    detection and returns [(label, raw, dets)]. ``detector`` reuses a
-    :func:`build_detector` result."""
+    """Detect on ``images``: file paths (binary PPM read with numpy, other
+    formats with cv2) or decoded HWC RGB arrays. Prints one
+    ``label: name score [x0, y0, x1, y1]`` line per detection and returns
+    [(label, raw, dets)]. ``detector`` reuses a :func:`build_detector`
+    result."""
     names, dim, infer = detector or build_detector(cfg, weights_path,
                                                    device=device)
     # one compiled batch shape in yolojax; here a fixed batch keeps the

@@ -1,9 +1,9 @@
 """Layered INI config, the dialect of ``yolojax/config/__init__.py``.
 
 ``-c`` takes several files (later override earlier) and ``section.key=value``
-overrides beat both. This slice parses the sections the serving path reads,
-``[model]``, ``[detect]`` and ``[eval]``, into typed dataclasses. The other
-sections of the shared dialect (``[cache]``, ``[queue]``,
+overrides beat both. The port parses the sections its entry points read,
+``[model]``, ``[cache]``, ``[detect]`` and ``[eval]``, into typed
+dataclasses. The other sections of the shared dialect (``[queue]``,
 ``[data_augmentation]``, ``[train]``, ``[optimizer]``, ``[summary]``) are
 accepted and kept as raw strings in :attr:`YoloJaxConfig.unparsed` until the
 slices that read them port their dataclasses, so every ``config/*.ini``
@@ -16,7 +16,7 @@ import configparser
 import dataclasses
 import logging
 import os
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 log = logging.getLogger(__name__)
 
@@ -52,6 +52,16 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    basedir: str = "cache"
+    # whitespace-separated entries "voc:<root>:<image_set>" or
+    # "coco:<ann_json>:<image_dir>", per phase
+    train: str = ""
+    val: str = ""
+    test: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectConfig:
     threshold: float = 0.3
     nms_iou: float = 0.4
@@ -64,7 +74,8 @@ class DetectConfig:
     calib_images: int = 8          # int8: images used for activation calib
     calib_percentile: float = 100.0  # int8: |act| percentile for scales
     quant_bits: int = 8            # int8 path code width
-    fuse_stem: str = "off"         # fused conv0+pool (not ported yet)
+    fuse_stem: str = "off"         # fused conv0+pool: off|auto|pallas|xla
+                                   # (auto, pallas: the CUDA stem kernel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,13 +83,28 @@ class EvalConfig:
     batch_size: int = 32
     map_iou: float = 0.5
     max_detections: int = 100
-    data_parallel: str = "auto"    # shard eval batches over local devices
-    distributed: bool = False      # multi-host eval
+    data_parallel: str = "auto"    # auto|on|off; only one device is ported
+    distributed: bool = False      # multi-host eval (not ported yet)
+
+    def data_parallel_flag(self):
+        """Map the INI string onto evaluate_model's tri-state arg."""
+        v = self.data_parallel.strip().lower()
+        if v in ("auto", ""):
+            return None
+        if v in ("1", "true", "yes", "on"):
+            return True
+        if v in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(
+            f"eval.data_parallel = {self.data_parallel!r}: expected "
+            "auto, on, or off"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class YoloJaxConfig:
     model: ModelConfig = ModelConfig()
+    cache: CacheConfig = CacheConfig()
     detect: DetectConfig = DetectConfig()
     eval: EvalConfig = EvalConfig()
     # sections accepted but not parsed yet: {section: {key: raw value}}
@@ -104,14 +130,30 @@ class YoloJaxConfig:
             grid=self.model.grid,
         )
 
+    def cache_datasets(self, phase: str) -> List[dict]:
+        spec = getattr(self.cache, phase, "")
+        out = []
+        for entry in spec.split():
+            kind, rest = entry.split(":", 1)
+            if kind == "voc":
+                root, image_set = rest.rsplit(":", 1)
+                out.append({"kind": "voc", "root": root, "image_set": image_set})
+            elif kind == "coco":
+                ann, img_dir = rest.rsplit(":", 1)
+                out.append({"kind": "coco", "ann_json": ann, "image_dir": img_dir})
+            else:
+                raise ValueError(f"unknown dataset entry {entry!r}")
+        return out
+
 
 _SECTION_TYPES = {
     "model": ModelConfig,
+    "cache": CacheConfig,
     "detect": DetectConfig,
     "eval": EvalConfig,
 }
-_UNPARSED_SECTIONS = ("cache", "queue", "data_augmentation", "train",
-                      "optimizer", "summary")
+_UNPARSED_SECTIONS = ("queue", "data_augmentation", "train", "optimizer",
+                      "summary")
 
 
 def _coerce(field: dataclasses.Field, raw: str):

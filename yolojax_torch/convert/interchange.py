@@ -6,7 +6,9 @@ arrays, ``params = {"conv_<i>": {"w" (HWIO), "b" | "scale", "bias"},
 "var"}}``; the ``.npz`` store (``convert/store.py``) is that layout
 flattened. The port holds the same numbers in a :class:`Network`, with conv
 kernels OIHW and dense kernels (out, in). These two functions convert
-exactly (transposes only) in both directions.
+exactly (transposes only) in both directions. A model with a fused stem
+(``nn/stem.py``) carries ``conv_0 = {"wp" (3, 3, 12, 4*Co) packed HWIO,
+"b"}`` in both layouts, and its ``NoOpSpec`` slot carries nothing.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from yolojax_torch.nn.layers import (
     DenseLayer,
     DenseSpec,
     Network,
+    StemLayer,
 )
+from yolojax_torch.nn.stem import StemSpec
 
 
 def _tensor(a) -> torch.Tensor:
@@ -34,7 +38,10 @@ def params_from_jax(model, params: Dict[str, Any],
     """yolojax (params, state) pytrees of arrays -> a CPU :class:`Network`."""
     layers = {}
     for i, spec in enumerate(model.specs):
-        if isinstance(spec, ConvSpec):
+        if isinstance(spec, StemSpec):
+            p = params[f"conv_{i}"]
+            layers[f"conv_{i}"] = StemLayer(_tensor(p["wp"]), _tensor(p["b"]))
+        elif isinstance(spec, ConvSpec):
             name = f"conv_{i}"
             p = params[name]
             w = _tensor(p["w"]).permute(3, 2, 0, 1).contiguous()  # HWIO->OIHW
@@ -63,7 +70,10 @@ def params_to_jax(model, net: Network
     params: Dict[str, Any] = {}
     state: Dict[str, Any] = {}
     for i, spec in enumerate(model.specs):
-        if isinstance(spec, ConvSpec):
+        if isinstance(spec, StemSpec):
+            layer = getattr(net, f"conv_{i}")
+            params[f"conv_{i}"] = {"wp": arr(layer.wp), "b": arr(layer.b)}
+        elif isinstance(spec, ConvSpec):
             name = f"conv_{i}"
             layer = getattr(net, name)
             p = {"w": arr(layer.w.permute(2, 3, 1, 0))}  # OIHW -> HWIO

@@ -1,19 +1,37 @@
-"""The serving program: forward + decode + top-K + NMS on the device.
+"""The serving program (forward + decode + top-K + NMS on the device) and
+batched validation over a cached phase -> host VOC/COCO mAP.
 
-Port of ``make_infer_fn`` from ``yolojax/eval/evaluator.py`` (BASELINE
-config 2). The int8 trunk (``qm``) and the mAP evaluation come in later
-slices.
+Port of ``yolojax/eval/evaluator.py`` for one process on one device. Per
+batch: the host loader's canvases go to the device, the serving program
+runs there (the fused-stem and NMS kernels on the card), and only the
+fixed-shape outputs come back; the host un-pads them into detection lists
+and scores them with ``eval/voc_map.py``. The int8 trunk, AOT artifacts
+(``infer_override``/``fixed_batch``), data-parallel and multi-host eval
+raise :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import copy
+import json
+import logging
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
+from torch import nn
 
+from yolojax_torch.convert.fold import fold_bn
+from yolojax_torch.data.augment import letterbox_transform
+from yolojax_torch.data.loader import Loader, LoaderConfig
+from yolojax_torch.eval.voc_map import compute_coco_map, compute_map
 from yolojax_torch.models import Model
-from yolojax_torch.nn.layers import Network
+from yolojax_torch.nn.layers import Network, StemLayer
+from yolojax_torch.nn.stem import fuse_stem
 from yolojax_torch.postprocess.nms import postprocess_v1, postprocess_v2
+from yolojax_torch.utils.device import resolve_device
+
+log = logging.getLogger(__name__)
 
 # The eval protocol's score floor: low enough to keep the PR tail mAP/AR
 # integrate over.
@@ -44,3 +62,200 @@ def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
         )
 
     return infer
+
+
+def serving_weights(net: Network, device: torch.device,
+                    dtype: torch.dtype) -> Network:
+    """Move ``net`` to ``device`` (in place) with conv/dense kernels stored
+    once in the compute dtype (conv kernels channels_last); biases stay
+    f32. The forward casts kernels to the compute dtype anyway, so this
+    only saves the per-call cast. A fused stem keeps its f32 weights: the
+    stem kernel reads them as they are."""
+    net = net.to(device).requires_grad_(False).eval()
+    for layer in net.children():
+        if isinstance(layer, StemLayer):
+            continue
+        w = layer.w.detach().to(dtype)
+        if w.dim() == 4:
+            w = w.contiguous(memory_format=torch.channels_last)
+        layer.w = nn.Parameter(w, requires_grad=False)
+    return net
+
+
+def _dump_coco_json(path, detections, ground_truth, num_images,
+                    num_classes, box_scale, class_names=None,
+                    gt_difficult=None):
+    """Write the eval set + detections as one COCO-format JSON for
+    external cross-checking: ``gt`` loads into ``pycocotools.COCO()``,
+    ``detections`` into ``COCO.loadRes()``. Boxes are converted from
+    canvas-normalized (ymin, xmin, ymax, xmax) to COCO's pixel [x, y, w, h];
+    category ids are 1-based per COCO convention."""
+
+    def xywh(box):
+        y0, x0, y1, x1 = (float(v) * box_scale for v in box)
+        return [x0, y0, max(x1 - x0, 0.0), max(y1 - y0, 0.0)]
+
+    names = list(class_names or [])
+    gt = {
+        "images": [{"id": i, "width": int(box_scale),
+                    "height": int(box_scale)} for i in range(num_images)],
+        "categories": [
+            {"id": c + 1,
+             "name": names[c] if c < len(names) else f"class_{c}"}
+            for c in range(num_classes)
+        ],
+        # VOC difficult GT rides iscrowd=1: pycocotools then ignores it
+        "annotations": [
+            {"id": i + 1, "image_id": int(img), "category_id": int(cls) + 1,
+             "bbox": (b := xywh(box)), "area": b[2] * b[3],
+             "iscrowd": int(bool(gt_difficult[i])) if gt_difficult is not None
+             else 0}
+            for i, (img, cls, box) in enumerate(ground_truth)
+        ],
+    }
+    results = [
+        {"image_id": int(img), "category_id": int(cls) + 1,
+         "bbox": xywh(box), "score": float(score)}
+        for img, cls, score, box in detections
+    ]
+    with open(path, "w") as f:
+        json.dump({"gt": gt, "detections": results}, f)
+    log.info("eval: dumped COCO-format GT + %d detections -> %s",
+             len(results), path)
+
+
+def _refuse_unported(int8, data_parallel, distributed, infer_override,
+                     fixed_batch) -> None:
+    for on, what in (
+        (int8, "int8 eval (detect.use_int8): the int8 trunk"),
+        (data_parallel, "eval.data_parallel=on: multi-device eval"),
+        (distributed, "eval.distributed: multi-host eval"),
+        (infer_override is not None or fixed_batch,
+         "artifact eval (infer_override / fixed_batch): AOT artifacts"),
+    ):
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def evaluate_model(
+    model: Model,
+    net: Network,
+    cache,
+    *,
+    input_dim: int,
+    batch_size: int = 32,
+    score_thresh: float = EVAL_SCORE_THRESH,  # low: keep the PR tail
+    nms_iou: float = 0.45,
+    top_k: int = 256,
+    map_iou: float = 0.5,
+    use_pallas: str = "auto",
+    candidates: str = "auto",
+    compute_dtype: Optional[torch.dtype] = None,  # None: f32 CPU, bf16 card
+    max_batches: Optional[int] = None,
+    stretch: bool = False,
+    fold: bool = True,
+    fuse_stem_impl: str = "off",
+    bn_eps: float = 1e-5,
+    max_detections: int = 0,  # cap kept detections per image (0 = no cap)
+    coco: bool = False,  # add COCO-style AP@[.50:.95] + size bins
+    dump_path: Optional[str] = None,  # write COCO-format GT+results JSON
+    class_names: Optional[Sequence[str]] = None,  # labels for the dump
+    device=None,  # default: the CUDA card (raises without one)
+    int8: bool = False,
+    data_parallel: Optional[bool] = None,  # None/False: the one device
+    distributed: bool = False,
+    infer_override=None,
+    fixed_batch: Optional[int] = None,
+) -> Dict[str, float]:
+    """Run detection over a cached phase and return VOC (and with
+    ``coco``, COCO) metrics plus ``num_images`` and ``num_detections``.
+    ``net`` is not changed: the fold, the stem fusion and the move to the
+    device work on a copy."""
+    _refuse_unported(int8, data_parallel, distributed, infer_override,
+                     fixed_batch)
+    device = resolve_device(device)
+    if compute_dtype is None:
+        compute_dtype = (torch.float32 if device.type == "cpu"
+                         else torch.bfloat16)
+    net = copy.deepcopy(net)
+    if fold:
+        model, net = fold_bn(model, net, eps=bn_eps)
+        model, net = fuse_stem(model, net, impl=fuse_stem_impl)
+    net = serving_weights(net, device, compute_dtype)
+    infer = make_infer_fn(model, score_thresh=score_thresh,
+                          iou_thresh=nms_iou, top_k=top_k,
+                          use_pallas=use_pallas, candidates=candidates,
+                          compute_dtype=compute_dtype)
+    loader = Loader(
+        cache,
+        LoaderConfig(batch_size=batch_size, canvas_dim=input_dim,
+                     max_boxes=64, stretch=stretch, drop_remainder=False,
+                     num_threads=8),
+    )
+
+    detections = []
+    ground_truth = []
+    gt_difficult = []  # aligned with ground_truth (VOC ignore semantics)
+    img_id = 0
+    for bi, (images, boxes, classes, valid) in enumerate(
+            loader.epoch(0, shuffle=False)):
+        if max_batches is not None and bi >= max_batches:
+            break
+        x = torch.from_numpy(images).to(device)
+        out = {k: v.cpu().numpy() for k, v in infer(net, x).items()}
+        # GT is already in canvas coords, consistent with detections; the
+        # row-major nonzero keeps the (image, slot) order
+        for k, g in zip(*(a.tolist() for a in np.nonzero(valid))):
+            cx, cy, w, h = boxes[k, g]
+            ground_truth.append(
+                (img_id + k, int(classes[k, g]),
+                 np.asarray([cy - h / 2, cx - w / 2,
+                             cy + h / 2, cx + w / 2])))
+        gt_difficult.extend([False] * (len(ground_truth) - len(gt_difficult)))
+        # the difficult GT, which the loader's training view leaves out;
+        # eval order is cache order (epoch 0, no shuffle, one shard)
+        for k in range(images.shape[0]):
+            ci = bi * batch_size + k
+            _, cb, cc, cd = cache.example_eval(ci)
+            if not cd.any():
+                continue
+            iw, ih = (int(v) for v in cache.sizes[ci])
+            sx, sy, px, py = letterbox_transform(iw, ih, input_dim,
+                                                 stretch=stretch)
+            for b, c_ in zip(cb[cd], cc[cd]):
+                cx = b[0] * sx + px
+                cy = b[1] * sy + py
+                w, h = b[2] * sx, b[3] * sy
+                ground_truth.append(
+                    (img_id + k, int(c_),
+                     np.asarray([cy - h / 2, cx - w / 2,
+                                 cy + h / 2, cx + w / 2])))
+                gt_difficult.append(True)
+        keep = out["keep"]
+        if max_detections:
+            # NMS output is score-sorted along the box axis: keep the first
+            # max_detections kept entries per image
+            keep = keep & (np.cumsum(keep, axis=1) <= max_detections)
+        for k, d in zip(*(a.tolist() for a in np.nonzero(keep))):
+            detections.append(
+                (img_id + k, int(out["classes"][k, d]),
+                 float(out["scores"][k, d]), out["boxes"][k, d]))
+        img_id += images.shape[0]
+    log.info("eval: %d images, %d detections, %d gt boxes",
+             img_id, len(detections), len(ground_truth))
+    if dump_path:
+        _dump_coco_json(dump_path, detections, ground_truth, img_id,
+                        model.num_classes, float(input_dim), class_names,
+                        gt_difficult=gt_difficult)
+    metrics = compute_map(detections, ground_truth, model.num_classes,
+                          iou_thresh=map_iou, gt_difficult=gt_difficult)
+    if coco:
+        # boxes are canvas-normalized; scale areas to canvas pixels so the
+        # COCO small/medium/large bins mean what they do in COCO
+        metrics.update(compute_coco_map(detections, ground_truth,
+                                        model.num_classes,
+                                        box_scale=float(input_dim),
+                                        gt_ignore=gt_difficult))
+    metrics["num_images"] = img_id
+    metrics["num_detections"] = len(detections)
+    return metrics

@@ -5,7 +5,9 @@ C interface. It is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/yolojax_torch/`` at first use and loaded with
 ``ctypes``; no PyTorch headers are involved, so a build takes seconds. The
 library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.
+edited source is rebuilt and a stale library is never loaded. A kernel's
+own extra flags (``nms_greedy`` needs ``-fmad=false``) are passed by its
+wrapper and are part of that hash.
 
 This module imports nothing from CUDA: the CPU tests import it freely.
 """
@@ -21,6 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolojax_torch"
@@ -28,8 +31,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yolojax_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # no FMA contraction: the IoU must round as the plain version does
-    "-fmad=false",
 )
 
 
@@ -50,18 +51,21 @@ def _nvcc() -> str:
         "CUDA kernels are built from yolojax_torch/csrc at first use")
 
 
-def build(name: str, *, verbose: bool = False) -> BuildResult:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    ``verbose`` adds ``-Xptxas -v`` (the flag is not part of the hash)."""
+def build(name: str, flags: Sequence[str] = (), *,
+          verbose: bool = False) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` with :data:`NVCC_FLAGS` plus the kernel's
+    own ``flags`` unless that library is already built. ``verbose`` adds
+    ``-Xptxas -v`` (the flag is not part of the hash)."""
     src = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *flags)
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -76,6 +80,7 @@ def build(name: str, *, verbose: bool = False) -> BuildResult:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library ``name``, built if needed, loaded once."""
-    return ctypes.CDLL(str(build(name).path))
+def load(name: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernel library ``name`` built with ``flags``, built if needed,
+    loaded once."""
+    return ctypes.CDLL(str(build(name, flags).path))

@@ -11,8 +11,10 @@ channels_last NCHW view, and its output is permuted back, so no layer
 copies between layouts. Conv kernels are stored OIHW (PyTorch's order);
 ``yolojax_torch.convert.interchange`` converts from and to yolojax's HWIO.
 
-Only the inference forward is ported here; train-mode BN and dropout, the
-fused stem (``StemSpec``) and the int8 trunk come in later slices.
+Only the inference forward is ported here, with the fused stem
+(``nn/stem.py``: ``StemSpec`` / ``NoOpSpec``, weights in a
+:class:`StemLayer`); train-mode BN and dropout and the int8 trunk come in
+later slices.
 """
 
 from __future__ import annotations
@@ -189,6 +191,25 @@ class ConvLayer(nn.Module):
             self.register_buffer("var", var)
 
 
+class StemLayer(nn.Module):
+    """Weights of the fused stem (``StemSpec``): the packed kernel ``wp``
+    (3, 3, 4*Ci, 4*Co), laid out HWIO as yolojax's ``pack_stem_kernel``
+    lays it out, and the folded bias ``b`` (Co,). The unpacked kernel
+    ``w0`` (3, 3, Ci, Co), which the CUDA kernel reads, is recovered from
+    ``wp`` once, here, and moves with the module (a buffer that is not
+    saved)."""
+
+    def __init__(self, wp: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        from yolojax_torch.nn.stem import unpack_stem_kernel
+
+        self.wp = nn.Parameter(wp)
+        self.b = nn.Parameter(b)
+        self.register_buffer(
+            "w0", unpack_stem_kernel(wp.detach().float()).contiguous(),
+            persistent=False)
+
+
 class DenseLayer(nn.Module):
     """Weights of one DenseSpec: ``w`` (out, in) as ``F.linear`` takes
     it, and ``b`` (out,)."""
@@ -220,7 +241,21 @@ class Network(nn.Module):
         x = images
         outputs = []
         for i, spec in enumerate(self.specs):
-            if isinstance(spec, ConvSpec):
+            tname = type(spec).__name__
+            if tname == "StemSpec":  # fused conv0 + pool (nn/stem.py)
+                layer = getattr(self, _conv_name(i))
+                if spec.impl == "xla":
+                    from yolojax_torch.nn.stem import stem_forward
+
+                    x = stem_forward(x, layer.wp, layer.b,
+                                     compute_dtype=compute_dtype)
+                else:  # "pallas" | "auto": the CUDA kernel, bf16 NHWC out
+                    from yolojax_torch.nn.cuda_stem import stem_fused_cuda
+
+                    x = stem_fused_cuda(x, layer.wp, layer.b, w0=layer.w0)
+            elif tname == "NoOpSpec":
+                pass
+            elif isinstance(spec, ConvSpec):
                 layer = getattr(self, _conv_name(i))
                 y = conv2d(x, layer.w, spec.stride,
                            compute_dtype=compute_dtype).float()
@@ -268,7 +303,19 @@ def init_network(generator: torch.Generator, specs: Sequence[LayerSpec],
     channel_hist = []  # per-spec output channels for RouteSpec
     hw_hist = []
     for i, spec in enumerate(specs):
-        if isinstance(spec, ConvSpec):
+        tname = type(spec).__name__
+        if tname == "StemSpec":
+            from yolojax_torch.nn.stem import pack_stem_kernel
+
+            w0 = torch.randn((3, 3, c, spec.out), generator=generator)
+            wp = pack_stem_kernel((w0 * math.sqrt(2.0 / (9 * c))).numpy())
+            layers[_conv_name(i)] = StemLayer(torch.from_numpy(wp),
+                                              torch.zeros(spec.out))
+            c = spec.out
+            h, w = h // 2, w // 2
+        elif tname == "NoOpSpec":
+            pass
+        elif isinstance(spec, ConvSpec):
             std = math.sqrt(2.0 / (spec.ksize * spec.ksize * c))
             wt = torch.randn((spec.out, c, spec.ksize, spec.ksize),
                              generator=generator) * std

@@ -22,11 +22,13 @@ from yolojax_torch.kernels import build
 from yolojax_torch.postprocess.nms import nms_greedy_torch
 
 MAX_K = 1024  # the kernel's bit matrix and sweep handle any K up to this
+# no FMA contraction: the IoU must round as the plain version does
+NVCC_FLAGS = ("-fmad=false",)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    lib = build.load("nms_greedy")
+    lib = build.load("nms_greedy", NVCC_FLAGS)
     fn = lib.nms_greedy_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
