@@ -11,9 +11,11 @@ Phases, each of which raises on failure:
 2. build every CUDA kernel of the port from ``yolojax_torch/csrc``, one
    ``nvcc`` per source, all at once (``-Xptxas -v`` output is printed);
 3. hold each kernel against its plain PyTorch version on the card: the
-   greedy-NMS kernel on nine cases, the fused-stem kernel on five input
-   shapes with random and with the seeded Darknet-19's conv0 weights
-   (and ``detect.fuse_stem=auto`` launches it, as ``pallas`` does);
+   greedy-NMS kernel's keep masks bit for bit on nine cases, the fused-stem
+   kernel within ``nn/stem.py::stem_tolerance`` on six input shapes (one
+   ragged) with random weights, random weights and a cancelling bias, and
+   the seeded Darknet-19's conv0 weights (and ``detect.fuse_stem=auto``
+   launches it, as ``pallas`` does);
 4. drive the serving path as a user does (``build_detector`` and
    ``run_detect`` on YOLOv2 Darknet-19 at 416, full width, random weights
    from a seed), count the kernel launches of that run, check the path's
@@ -23,7 +25,9 @@ Phases, each of which raises on failure:
    set of PPM images, then ``cli.eval`` with ``detect.fuse_stem=pallas``),
    count its kernel launches (each kernel once per batch), check its
    metrics and the fused-stem head against the unfused forward;
-6. time the paths and the kernels on the card.
+6. time the paths and the kernels on the card (the NMS kernel's build and
+   sweep phases also apart), and check that the fused-stem batch beats the
+   unfused one.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -60,7 +64,13 @@ from yolojax_torch.kernels import build
 from yolojax_torch.nn import cuda_stem
 from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import conv2d, leaky_relu, max_pool
-from yolojax_torch.nn.stem import fuse_stem, pack_stem_kernel, stem_fused_torch
+from yolojax_torch.nn.stem import (
+    fuse_stem,
+    pack_stem_kernel,
+    stem_fused_torch,
+    stem_tolerance,
+    unpack_stem_kernel,
+)
 from yolojax_torch.postprocess import cuda_nms
 from yolojax_torch.postprocess.cuda_nms import MAX_K, nms_greedy_cuda
 from yolojax_torch.postprocess.nms import (
@@ -87,10 +97,13 @@ FORWARD_RTOL = 1e-4
 KERNELS = (("nms_greedy", cuda_nms.NVCC_FLAGS),
            ("stem_fused", cuda_stem.NVCC_FLAGS))
 # (N, H, W) inputs of the stem kernel against its plain version: the eval
-# batch, one image, a smaller and a larger (multiscale 608) square, a tiny one
+# batch, one image, a smaller and a larger (multiscale 608) square, a tiny
+# one, and a ragged one (W/2 = 67 is no multiple of the tile's 32 columns,
+# W = 134 no multiple of 4, so no row is 16-byte aligned)
 STEM_CASES = ((BATCH, 416, 416), (1, 416, 416), (3, 320, 320),
-              (2, 608, 608), (5, 64, 64))
-STEM_MAX_ULPS = 1  # bf16 ulps, kernel vs plain (both sum in one f32 order)
+              (2, 608, 608), (5, 64, 64), (2, 90, 134))
+# kernel vs plain: within nn/stem.py::stem_tolerance (the tensor cores sum
+# the exact bf16 products in another order); the printed ratio must be <= 1
 # fused-stem head vs the unfused forward, of max|ref|: the stem rounds its
 # input and output to bf16 at other points than conv 0 + pool do
 STEM_HEAD_RTOL = 3e-2
@@ -169,7 +182,7 @@ def kernel_cases(device) -> dict:
                         torch.zeros((8, 256), dtype=torch.bool, device=device)),
         "n32_k256_coco80": nms_case(rng, 32, 256, 80, 0.8, device),
         "n8_k300_ragged_word": nms_case(rng, 8, 300, 20, 0.9, device),
-        f"n4_k{MAX_K}_over_48KB_smem": nms_case(rng, 4, MAX_K, 5, 0.9, device),
+        f"n4_k{MAX_K}_largest_k": nms_case(rng, 4, MAX_K, 5, 0.9, device),
     }
 
 
@@ -268,40 +281,58 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ordinal(a) - ordinal(b)).abs()
 
 
-def compare_stem(device, stem_layer) -> float:
+def cancelling_bias(w0: torch.Tensor, device) -> torch.Tensor:
+    """Minus each channel's mean pre-activation of the bf16 conv over
+    uniform [0, 1) images: about half of the sums then cancel to near zero,
+    where the order of the additions matters most."""
+    x = torch.rand((4, 64, 64, 3), device=device,
+                   generator=torch.Generator(device).manual_seed(SEED + 6))
+    xb = x.to(torch.bfloat16).double().permute(0, 3, 1, 2)
+    wb = w0.to(torch.bfloat16).double().permute(3, 2, 0, 1)  # HWIO -> OIHW
+    pre = torch.nn.functional.conv2d(xb, wb, padding=1)
+    return (-pre.mean(dim=(0, 2, 3))).float().contiguous()
+
+
+def compare_stem(device, stem_layer) -> tuple:
     """The stem kernel against its plain version on the card, on
-    :data:`STEM_CASES` with random weights and with ``stem_layer``'s (the
-    seeded Darknet-19's folded conv0); returns the largest absolute
-    difference."""
+    :data:`STEM_CASES` with random weights, with random weights and a
+    cancelling bias, and with ``stem_layer``'s (the seeded Darknet-19's
+    folded conv0). Prints, per case, the largest |got - want| / tolerance,
+    the largest distance in bf16 ulps and the count of values that are not
+    bit-equal; returns the largest absolute difference and ratio."""
     rng = np.random.RandomState(SEED + 2)
     w0 = rng.normal(0, 0.2, (3, 3, 3, 32)).astype(np.float32)
+    wp = torch.from_numpy(pack_stem_kernel(w0)).to(device)
+    w0 = torch.from_numpy(w0).to(device)
     weights = {
-        "random": (torch.from_numpy(pack_stem_kernel(w0)).to(device),
-                   torch.from_numpy(rng.normal(0, 0.1, 32).astype(
-                       np.float32)).to(device)),
+        "random": (wp, torch.from_numpy(rng.normal(0, 0.1, 32).astype(
+            np.float32)).to(device)),
+        "near-cancellation": (wp, cancelling_bias(w0, device)),
         "darknet19 conv0": (stem_layer.wp, stem_layer.b),
     }
     gen = torch.Generator(device).manual_seed(SEED + 3)
-    worst = 0.0
+    worst, worst_ratio = 0.0, 0.0
     for n, h, w in STEM_CASES:
         x = torch.rand((n, h, w, 3), device=device, generator=gen)
         for label, (wp, b) in weights.items():
             got = stem_fused_cuda(x, wp, b)
             want = stem_fused_torch(x, wp, b)
             torch.cuda.synchronize()
-            ulps = bf16_ulps(got, want)
-            err = float((got.float() - want.float()).abs().max())
-            worst = max(worst, err)
-            print(f"  stem ({n}, {h}, {w}) {label} weights: max "
-                  f"{int(ulps.max())} bf16 ulp ({int((ulps > 0).sum())} of "
-                  f"{ulps.numel()} values differ), max abs err {err:.3g}",
-                  flush=True)
             check(got.shape == (n, h // 2, w // 2, 32)
                   and got.dtype == torch.bfloat16, "stem output shape/type")
-            check(int(ulps.max()) <= STEM_MAX_ULPS,
-                  f"stem kernel within {STEM_MAX_ULPS} ulp of plain on "
-                  f"({n}, {h}, {w}) {label}")
-            del got, want, ulps
+            diff = (got.float() - want.float()).abs()
+            tol = stem_tolerance(x, unpack_stem_kernel(wp.float()), b, want)
+            ratio = float((diff / tol).max())
+            ulps = bf16_ulps(got, want)
+            err = float(diff.max())
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+            print(f"  stem ({n}, {h}, {w}) {label} weights: max |err| / "
+                  f"tolerance {ratio:.4f}, max {int(ulps.max())} bf16 ulp, "
+                  f"{int((ulps > 0).sum())} of {ulps.numel()} values not "
+                  f"bit-equal, max abs err {err:.3g}", flush=True)
+            check(ratio <= 1.0, f"stem kernel within stem_tolerance of plain "
+                                f"on ({n}, {h}, {w}) {label}")
+            del got, want, ulps, diff, tol
     wp, b = weights["random"]
     for bad, why in (
         (lambda: stem_fused_cuda(torch.zeros((1, 415, 416, 3), device=device),
@@ -320,7 +351,7 @@ def compare_stem(device, stem_layer) -> float:
         except ValueError:
             continue
         raise RuntimeError(f"chip_smoke: the stem wrapper accepted {why}")
-    return worst
+    return worst, worst_ratio
 
 
 def random_weights(cfg, path: str) -> None:
@@ -690,6 +721,8 @@ def time_fusion(progs: dict, canvases, card: str) -> None:
               f"{batch / mean * 1e3:.1f} img/s, peak device memory "
               f"{peaks[fuse] / 2**30:.2f} GiB (both programs' weights "
               "resident)", flush=True)
+    check(max(times["pallas"]) < min(times["off"]),
+          "the fused-stem batch is faster than the unfused one")
     infer_fn, net = progs["pallas"]
     profile_batch(lambda: infer_fn(net, canvases), card + ", fused stem")
 
@@ -702,7 +735,7 @@ def stem_bound_ms(x: torch.Tensor, stem_layer) -> tuple:
     n, h, w, _ = x.shape
     pixels = n * (h // 2) * (w // 2)
     co = stem_layer.b.numel()
-    nbytes = (x.numel() * 4 + stem_layer.w0.numel() * 4 + co * 4
+    nbytes = (x.numel() * 4 + stem_layer.wfrag.numel() * 4 + co * 4
               + pixels * co * 2)
     ops = pixels * 4 * 27 * co * 2
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -723,7 +756,7 @@ def time_stem(progs: dict, canvases, card: str) -> dict:
 
     def kernel():
         return stem_fused_cuda(x, stem_layer.wp, stem_layer.b,
-                               w0=stem_layer.w0)
+                               wfrag=stem_layer.wfrag)
 
     def unfused():
         y = conv2d(x, conv0.w, 1, compute_dtype=torch.bfloat16).float()
@@ -761,10 +794,28 @@ def time_eval(argv: list, n_images: int, card: str) -> None:
           "(cache load, host decode + letterbox, device, mAP)", flush=True)
 
 
+def kernel_device_us(fn, reps: int) -> dict:
+    """Device microseconds a call of each kernel ``fn()`` launches, by kernel
+    name, from one ``torch.profiler`` trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def time_nms(shifted, valid, keep, iou_thresh: float, card: str) -> dict:
-    """The kernel's device time (launch overhead kept out), its time per
-    call from Python, the plain sweep's time per call (one CUDA-event pair
-    around each call: ~1,300 small launches, so mostly host time), and the
+    """The kernel's device time (launch overhead kept out), its build and
+    sweep kernels timed apart (profiler, by kernel name), its time per call
+    from Python, the plain sweep's time per call (one CUDA-event pair around
+    each call: ~1,300 small launches, so mostly host time), and the
     kernel's bound on these inputs."""
     n, k = valid.shape
 
@@ -772,16 +823,25 @@ def time_nms(shifted, valid, keep, iou_thresh: float, card: str) -> dict:
         return nms_greedy_cuda(shifted, valid, iou_thresh)
 
     ms = cuda_ms_queued(kernel, 200)
+    by_name = kernel_device_us(kernel, 200)
+    phase_ms = {}
+    for name, fn_name in (("build_ms", "nms_build_kernel"),
+                          ("sweep_ms", "nms_sweep_kernel")):
+        us = [t for key, t in by_name.items() if fn_name in key]
+        check(len(us) == 1, f"the profile shows {fn_name} once")
+        phase_ms[name] = us[0] / 1e3
     call_ms = statistics.median(cuda_ms(kernel, 20))
     plain_ms = statistics.median(cuda_ms(
         lambda: nms_greedy_torch(shifted, valid, iou_thresh), 3))
     bound_ms, bound_by, nbytes, ops = nms_bound_ms(shifted, valid, keep)
     print(f"  [{card}] nms_greedy at ({n}, {k}): kernel {ms * 1e3:.2f} us on "
-          f"the device ({call_ms * 1e3:.2f} us a call from Python), bound "
+          f"the device (profiled: build {phase_ms['build_ms'] * 1e3:.2f} us, "
+          f"sweep {phase_ms['sweep_ms'] * 1e3:.2f} us a call; "
+          f"{call_ms * 1e3:.2f} us a call from Python), bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} B, {ops} f32 ops), "
           f"plain sweep {plain_ms * 1e3:.1f} us, library none", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, **phase_ms}
 
 
 def main() -> int:
@@ -808,7 +868,7 @@ def main() -> int:
               f"{cfg.model.dim}, {os.path.getsize(npz) / 2**20:.1f} MiB npz "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
         progs = serving_programs(npz)
-        stem_err = compare_stem(device, progs["pallas"][1].conv_0)
+        stem_err, stem_ratio = compare_stem(device, progs["pallas"][1].conv_0)
         check_auto_launches(npz, device)
 
         run = drive_main_path(cfg, npz, device, BATCH)
@@ -840,6 +900,7 @@ def main() -> int:
         "max_abs_err": nms_err,
         **nms_times,
         "library_ms": None,
+        "redesigned": "PR 3",
     }, {
         "name": "stem_fused",
         "route": "cuda",
@@ -847,8 +908,10 @@ def main() -> int:
         "replaces": "yolojax/nn/pallas_stem.py:83",
         "launches": ev["launches"]["stem_fused"],
         "max_abs_err": stem_err,
+        "max_err_over_tolerance": stem_ratio,
         **stem_times,
         "library_ms": None,
+        "redesigned": "PR 3",
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ import torch
 from jax import lax
 
 from yolojax.postprocess import nms as jax_nms
+from yolojax_torch.ops.boxes import iou_matrix
 from yolojax_torch.postprocess import nms
 from yolojax_torch.postprocess.cuda_nms import nms_greedy_cuda
 
@@ -76,6 +77,69 @@ def test_plain_sweep_equals_lax_pallas_and_oracle(case):
         assert got[:, 0].all() and not got[:, 1:].any()
     if case == "class_offset_separation":
         assert got[0, 0] and got[0, 1]
+
+
+def _word_block_sweep(boxes, valid, iou_thresh):
+    """csrc/nms_greedy.cu's algorithm in torch: the build kernel's
+    lower-triangle overlap words (bit b of word v of row i: IoU(i, 64v + b)
+    > thr and 64v + b < i), then the sweep kernel's walk over 64-row word
+    blocks: rows suppressed by the kept words of earlier blocks, a 32-step
+    chain over the low halves of the diagonal words, the parallel clear of
+    rows 32..63 by the kept rows 0..31, and a 32-step chain over the high
+    halves."""
+    n, k = valid.shape
+    words = -(-k // 64)
+    pad = 64 * words - k
+    thr = torch.tensor(iou_thresh, dtype=torch.float32)
+    ov = (iou_matrix(boxes, boxes) > thr) & torch.ones(k, k, dtype=torch.bool).tril(-1)
+    ov = torch.nn.functional.pad(ov, (0, pad, 0, pad))
+    shifts = torch.arange(64, dtype=torch.int64)
+    bits = (ov.reshape(n, 64 * words, words, 64).long() << shifts).sum(-1)
+    cand_all = torch.nn.functional.pad(valid.bool(), (0, pad))
+    low = 0xFFFFFFFF
+    keep = torch.zeros((n, 64 * words), dtype=torch.bool)
+    kept_words = []
+    for w in range(words):
+        rows = slice(64 * w, 64 * w + 64)
+        hit = torch.zeros((n, 64), dtype=torch.bool)
+        for v in range(w):
+            hit |= (bits[:, rows, v] & kept_words[v][:, None]) != 0
+        cand = cand_all[:, rows] & ~hit
+        d = bits[:, rows, w]
+        kept_a = torch.zeros(n, dtype=torch.int64)
+        for i in range(32):
+            take = cand[:, i] & ((d[:, i] & low & kept_a) == 0)
+            kept_a |= take.long() << i
+        cand_b = cand[:, 32:] & ((d[:, 32:] & low & kept_a[:, None]) == 0)
+        kept_b = torch.zeros(n, dtype=torch.int64)
+        for i in range(32):
+            take = cand_b[:, i] & ((((d[:, 32 + i] >> 32) & low) & kept_b) == 0)
+            kept_b |= take.long() << i
+        kept = kept_a | (kept_b << 32)
+        kept_words.append(kept)
+        keep[:, rows] = ((kept[:, None] >> shifts) & 1).bool()
+    return keep[:, :k]
+
+
+WORD_BLOCK_CASES = {
+    **{f"k{k}": (lambda r, k=k: _random_case(r, 3, k), 0.45)
+       for k in (1, 63, 64, 65, 200, 1024)},
+    "k256_class_offsets": (lambda r: _class_offset_case(r, 4, 256, 20), 0.4),
+    "all_identical_k130": (lambda r: _identical_case(r, 2, 130), 0.5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WORD_BLOCK_CASES))
+def test_word_block_sweep_equals_plain_sweep(case):
+    make, thr = WORD_BLOCK_CASES[case]
+    boxes, valid = make(np.random.RandomState(21))
+    b, v = torch.from_numpy(boxes), torch.from_numpy(valid)
+    want = nms.nms_greedy_torch(b, v, thr)
+    got = _word_block_sweep(b, v, thr)
+    assert torch.equal(got, want)
+    assert want.any() or not v.any()
+    if case.startswith("all_identical"):
+        assert want[:, 0].all() and not want[:, 1:].any()
 
 
 def test_batched_nms_on_cpu_takes_the_plain_sweep():

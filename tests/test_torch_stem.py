@@ -92,41 +92,197 @@ def test_plain_stem_matches_pallas_interpret(dim):
     assert bf16_ulps(got.float().numpy(), want).max() <= 1
 
 
-def test_cuda_kernel_summation_order_is_the_plain_versions():
-    """csrc/stem_fused.cu adds its products in the packed conv's order
-    (packed tap, then packed channel) and skips the packed kernel's zeros;
-    emulated here in numpy f32, that order gives the plain version's
-    result bit for bit, which is what the card is held to."""
-    x, w0, b = stem_inputs(32, seed=3, n=1)
-    xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
-    wb = torch.from_numpy(w0).to(torch.bfloat16).float().numpy()
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _phase_products(x, w0):
+    """The conv's bf16 x bf16 products, exact in f32: (N, H/2, W/2, 4
+    phases (di*2+dj), 27 taps (u, v, c) in raster order, Co)."""
+    xb, wb = _bf16(x), _bf16(w0)
     n, h, w, _ = x.shape
-    xpad = np.zeros((n, h + 4, w + 4, 3), np.float32)
-    xpad[:, 2:h + 2, 2:w + 2] = xb
-    acc = np.zeros((4, n, h // 2, w // 2, 32), np.float32)
-    for up in range(3):
-        for vp in range(3):
-            for si in range(2):
-                for sj in range(2):
-                    for c in range(3):
-                        off_r, off_c = 2 * up - 2 + si, 2 * vp - 2 + sj
-                        if not (-1 <= off_r <= 2 and -1 <= off_c <= 2):
-                            continue
-                        xv = xpad[:, 2 + off_r:2 + off_r + h:2,
-                                  2 + off_c:2 + off_c + w:2, c][..., None]
-                        for di in range(2):
-                            for dj in range(2):
-                                u, v = off_r - di + 1, off_c - dj + 1
-                                if 0 <= u <= 2 and 0 <= v <= 2:
-                                    p = di * 2 + dj
-                                    acc[p] = acc[p] + xv * wb[u, v, c]
-    z = acc + b
+    xpad = np.zeros((n, h + 2, w + 2, 3), np.float32)
+    xpad[:, 1:h + 1, 1:w + 1] = xb
+    phases = []
+    for di in range(2):
+        for dj in range(2):
+            taps = [xpad[:, di + u:di + u + h:2, dj + v:dj + v + w:2, c][..., None]
+                    * wb[u, v, c] for u in range(3) for v in range(3)
+                    for c in range(3)]
+            phases.append(np.stack(taps, axis=-2))
+    return np.stack(phases, axis=3)
+
+
+def _pairwise(p):
+    """f32 pairwise (tree) sum over axis -2, padded to a power of two."""
+    k = 1 << (p.shape[-2] - 1).bit_length()
+    p = np.concatenate([p, np.zeros(p.shape[:-2] + (k - p.shape[-2],)
+                                    + p.shape[-1:], np.float32)], axis=-2)
+    while p.shape[-2] > 1:
+        p = p[..., 0::2, :] + p[..., 1::2, :]
+    return p[..., 0, :]
+
+
+def _sequential(p):
+    acc = np.zeros(p.shape[:-2] + p.shape[-1:], np.float32)
+    for t in range(p.shape[-2]):
+        acc = acc + p[..., t, :]
+    return acc
+
+
+SUM_ORDERS = {
+    "float64": lambda p: p.astype(np.float64).sum(axis=-2).astype(np.float32),
+    "reversed_taps": lambda p: _sequential(p[..., ::-1, :]),
+    "pairwise": _pairwise,
+}
+
+
+def _epilogue(acc, b):
+    """f32 bias + leaky 0.1, max over the phase axis 3, one bf16 rounding."""
+    z = acc + b.astype(np.float32)
     z = np.where(z >= 0, z, np.float32(0.1) * z)
-    emulated = torch.from_numpy(z.max(axis=0)).to(torch.bfloat16)
-    plain = stem.stem_fused_torch(
-        torch.from_numpy(x), torch.from_numpy(stem.pack_stem_kernel(w0)),
-        torch.from_numpy(b))
-    assert torch.equal(emulated, plain)
+    return torch.from_numpy(z.max(axis=3)).to(torch.bfloat16)
+
+
+def _tolerance_case(case):
+    x, w0, b = stem_inputs(16, seed=3, n=1)
+    if case == "wide_range_near_cancellation":
+        # operands over 12 and 8 binades: the 27-term f32 sums are inexact,
+        # so the orders really differ (with inputs in [0, 1] they rarely do)
+        rng = np.random.RandomState(7)
+        x = (x * 2.0 ** rng.randint(-12, 1, x.shape)).astype(np.float32)
+        w0 = (w0 * 2.0 ** rng.randint(-8, 1, w0.shape)).astype(np.float32)
+    if case != "random":
+        # bias = minus each channel's mean pre-activation: half the sums
+        # cancel to near zero, where the sum order matters most
+        pre = _phase_products(x, w0).astype(np.float64).sum(axis=-2)
+        b = -pre.reshape(-1, pre.shape[-1]).mean(axis=0).astype(np.float32)
+    return x, w0, b
+
+
+def _within_tolerance(got, x, w0, b):
+    want = stem.stem_fused_torch(torch.from_numpy(x), torch.from_numpy(
+        stem.pack_stem_kernel(w0)), torch.from_numpy(b))
+    tol = stem.stem_tolerance(torch.from_numpy(x), torch.from_numpy(w0),
+                              torch.from_numpy(b), want)
+    ratio = ((got.float() - want.float()).abs() / tol).max()
+    return float(ratio), want
+
+
+@pytest.mark.parametrize("case", ["random", "near_cancellation",
+                                  "wide_range_near_cancellation"])
+@pytest.mark.parametrize("order", sorted(SUM_ORDERS))
+def test_other_summation_orders_stay_within_stem_tolerance(order, case):
+    """The CUDA kernel sums the same exact products on the tensor cores in
+    an order of its own; any order of the 27 additions in f32 (or a sum in
+    float64) must stay within stem_tolerance of the plain version."""
+    x, w0, b = _tolerance_case(case)
+    products = _phase_products(x, w0)
+    acc = SUM_ORDERS[order](products)
+    got = _epilogue(acc, b)
+    ratio, want = _within_tolerance(got, x, w0, b)
+    assert got.shape == want.shape and ratio <= 1.0
+    if case != "random":
+        assert (want.float().abs() < 1e-2).float().mean() > 0.02
+    if case == "wide_range_near_cancellation":
+        assert (acc != _sequential(products)).mean() > 0.5
+
+
+def test_stem_tolerance_catches_two_ulps_on_a_large_value():
+    x, w0, b = stem_inputs(16, seed=5, n=1)
+    want = stem.stem_fused_torch(torch.from_numpy(x), torch.from_numpy(
+        stem.pack_stem_kernel(w0)), torch.from_numpy(b))
+    tol = stem.stem_tolerance(torch.from_numpy(x), torch.from_numpy(w0),
+                              torch.from_numpy(b), want)
+    flat = want.view(torch.int16).reshape(-1).clone()
+    i = int(want.float().abs().reshape(-1).argmax())
+    assert float(want.reshape(-1)[i].abs()) > 0.5
+    for ulps, inside in ((1, True), (2, False)):
+        bad = flat.clone()
+        bad[i] += ulps if int(bad[i]) >= 0 else -ulps  # away from zero
+        got = bad.view(torch.bfloat16).reshape(want.shape)
+        err = (got.float() - want.float()).abs().reshape(-1)[i]
+        assert bool(err <= tol.reshape(-1)[i]) == inside, ulps
+
+
+def _emulate_mma_tiles(x, w0, b):
+    """The CUDA kernel's tile layout in numpy: 8 pooled pixels of a row
+    form a group; in M tile di, mma row g is pixel g at phase (di, 0) and
+    row g + 8 pixel g at phase (di, 1); K slot k carries tap STEM_K_TAPS[k]
+    (a padding slot reads some finite input value against a zero row of B;
+    here tap (2, 2, 2)). Each lane (g, tig) then max-reduces its own C
+    fragment registers."""
+    xb = _bf16(x)
+    n, h, w, _ = x.shape
+    hp, wq = h // 2, w // 2
+    wg = -(-wq // 8) * 8  # ragged groups: pixels past W/2 are computed, dropped
+    xpad = np.zeros((n, h + 2, 2 * wg + 2, 3), np.float32)
+    xpad[:, 1:h + 1, 1:w + 1] = xb
+    bmat = stem.stem_mma_matrix(torch.from_numpy(w0)).numpy()  # (32, 32)
+    taps = [t if t is not None else (2, 2, 2) for t in stem.STEM_K_TAPS]
+    tiles = []
+    for di in range(2):
+        rows = []
+        for dj in range(2):  # rows 0..7 then 8..15 of the tile
+            a = np.stack([xpad[:, di + u:di + u + h:2, dj + v:dj + v + 2 * wg:2, c]
+                          for u, v, c in taps], axis=-1)  # (n, hp, wg, 32)
+            rows.append(a.reshape(n, hp, wg // 8, 8, 32))
+        a_tile = np.concatenate(rows, axis=3)  # (n, hp, groups, 16, 32)
+        tiles.append(a_tile @ bmat)            # (n, hp, groups, 16, 32) f32
+    out = np.zeros((n, hp, wg // 8, 8, 32), np.float32)
+    for lane in range(32):
+        g, tig = lane // 4, lane % 4
+        for nt in range(4):
+            for e in range(2):
+                co = nt * 8 + 2 * tig + e
+                vals = [tiles[di][..., g + 8 * dj, co] for di in range(2)
+                        for dj in range(2)]  # c0/c1 (dj 0), c2/c3 (dj 1)
+                z = [v + np.float32(b[co]) for v in vals]
+                z = [np.where(v >= 0, v, np.float32(0.1) * v) for v in z]
+                out[..., g, co] = np.maximum.reduce(z)
+    out = out.reshape(n, hp, wg, 32)[:, :, :wq]
+    return torch.from_numpy(out).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16), (2, 10, 22), (1, 6, 34)])
+def test_mma_tile_layout_emulation_matches_plain(shape):
+    n, h, w = shape
+    rng = np.random.RandomState(h * w)
+    x = rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32)
+    w0 = rng.normal(0, 0.2, (3, 3, 3, 32)).astype(np.float32)
+    b = rng.normal(0, 0.1, (32,)).astype(np.float32)
+    got = _emulate_mma_tiles(x, w0, b)
+    ratio, want = _within_tolerance(got, x, w0, b)
+    assert got.shape == want.shape and ratio <= 1.0
+
+
+def test_mma_operand_fragments_hold_the_tap_matrix():
+    """Unpacking the (16, 32) fragment registers as mma.sync m16n8k16's
+    col-major B gives back the (32, 32) tap matrix; every tap is in K once."""
+    _, w0, _ = stem_inputs(8, seed=6)
+    w0 = torch.from_numpy(w0)
+    frag = stem.stem_mma_operand(w0)
+    assert frag.shape == (16, 32) and frag.dtype == torch.int32
+    words = frag.to(torch.int64) & 0xFFFFFFFF
+    halves = torch.stack([words & 0xFFFF, words >> 16], -1)  # (16, 32, 2)
+    vals = halves.to(torch.int32).to(torch.int16).view(torch.bfloat16).float()
+    rebuilt = torch.zeros(32, 32)
+    lane = torch.arange(32)
+    for ks in range(2):
+        for nt in range(4):
+            for half in range(2):
+                r = (ks * 4 + nt) * 2 + half
+                k0 = 16 * ks + 8 * half + 2 * (lane % 4)
+                n = 8 * nt + lane // 4
+                rebuilt[k0, n] = vals[r, :, 0]
+                rebuilt[k0 + 1, n] = vals[r, :, 1]
+    assert torch.equal(rebuilt, stem.stem_mma_matrix(w0))
+    taps = [t for t in stem.STEM_K_TAPS if t is not None]
+    assert sorted(taps) == [(u, v, c) for u in range(3) for v in range(3)
+                            for c in range(3)]
+    assert StemLayer(torch.from_numpy(stem.pack_stem_kernel(w0.numpy())),
+                     torch.zeros(32)).wfrag.equal(frag)
 
 
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():

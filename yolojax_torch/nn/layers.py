@@ -194,19 +194,22 @@ class ConvLayer(nn.Module):
 class StemLayer(nn.Module):
     """Weights of the fused stem (``StemSpec``): the packed kernel ``wp``
     (3, 3, 4*Ci, 4*Co), laid out HWIO as yolojax's ``pack_stem_kernel``
-    lays it out, and the folded bias ``b`` (Co,). The unpacked kernel
-    ``w0`` (3, 3, Ci, Co), which the CUDA kernel reads, is recovered from
-    ``wp`` once, here, and moves with the module (a buffer that is not
-    saved)."""
+    lays it out, and the folded bias ``b`` (Co,). ``wfrag``, the CUDA
+    kernel's B operand in its per-lane fragment order
+    (``nn/stem.py::stem_mma_operand``), is made from ``wp`` once, here, and
+    moves with the module as a buffer that is not saved (None unless conv0
+    is 3 -> 32, the kernel's shape)."""
 
     def __init__(self, wp: torch.Tensor, b: torch.Tensor):
         super().__init__()
-        from yolojax_torch.nn.stem import unpack_stem_kernel
+        from yolojax_torch.nn.stem import stem_mma_operand, unpack_stem_kernel
 
         self.wp = nn.Parameter(wp)
         self.b = nn.Parameter(b)
+        w0 = unpack_stem_kernel(wp.detach().float())
         self.register_buffer(
-            "w0", unpack_stem_kernel(wp.detach().float()).contiguous(),
+            "wfrag",
+            stem_mma_operand(w0) if tuple(w0.shape) == (3, 3, 3, 32) else None,
             persistent=False)
 
 
@@ -252,7 +255,7 @@ class Network(nn.Module):
                 else:  # "pallas" | "auto": the CUDA kernel, bf16 NHWC out
                     from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 
-                    x = stem_fused_cuda(x, layer.wp, layer.b, w0=layer.w0)
+                    x = stem_fused_cuda(x, layer.wp, layer.b, wfrag=layer.wfrag)
             elif tname == "NoOpSpec":
                 pass
             elif isinstance(spec, ConvSpec):

@@ -19,7 +19,12 @@ Here:
   XLA branch (``detect.fuse_stem=xla``);
 * :func:`stem_fused_torch` is the plain version of the CUDA kernel
   (``nn/cuda_stem.py``, ``csrc/stem_fused.cu``), with the rounding points
-  of ``yolojax/nn/pallas_stem.py::stem_forward_pallas``;
+  of ``yolojax/nn/pallas_stem.py::stem_forward_pallas``; the kernel sums
+  on the tensor cores in another order and is held to it within
+  :func:`stem_tolerance`, not bit for bit;
+* :data:`STEM_K_TAPS` and :func:`stem_mma_operand` are the kernel's GEMM
+  layout: which tap each K index carries, and the B operand in the
+  per-lane fragment order of ``mma.sync m16n8k16``;
 * :func:`fuse_stem` is the graph surgery, with yolojax's declines.
 """
 
@@ -125,9 +130,9 @@ def stem_fused_torch(x: torch.Tensor, wp: torch.Tensor,
     bf16, the packed conv summed in f32, the tiled bias added to the f32
     sum, leaky and the phase max in f32, one rounding to bf16 at the end.
     The sum runs tap by tap, packed channel by packed channel, one f32
-    multiply and one f32 add each: the CUDA kernel adds the same products
-    in the same order (it skips the packed kernel's zeros, which add
-    nothing), so the two agree bit for bit.
+    multiply and one f32 add each. The CUDA kernel forms the same exact
+    bf16 products but sums them on the tensor cores in their own order, so
+    it agrees with this version within :func:`stem_tolerance`.
     """
     n, h, w, _ = x.shape
     co = b.shape[0]
@@ -145,6 +150,82 @@ def stem_fused_torch(x: torch.Tensor, wp: torch.Tensor,
                 acc += win[..., pc : pc + 1] * wb[u, v, pc]
     z = leaky_relu(acc + b.float().repeat(4))
     return z.reshape(n, p, q, 4, co).amax(dim=3).to(torch.bfloat16)
+
+
+def _k_taps():
+    """K index -> tap (u, v, c) of the CUDA kernel's GEMM, None for the
+    five zero rows that pad 27 taps to 32. K slots 2p and 2p + 1 hold tap
+    pair p = 5u + j/2: taps j and j + 1 (j = v*3 + c even) of tap row u,
+    which are two neighbouring floats of one staged input row, so each pair
+    is one aligned 32-bit load of bf16 pairs in the kernel. j + 1 = 9 (the
+    next pixel's first value) and pair 15 are padding. In ``mma.sync
+    m16n8k16`` lane group ``tig`` (lane % 4) holds pairs p = 4q + tig,
+    q = 0..3 over the two k-steps."""
+    taps = [None] * 32
+    for p in range(15):
+        u, j0 = divmod(p, 5)
+        for e in range(2):
+            j = 2 * j0 + e
+            if j < 9:
+                taps[2 * p + e] = (u, j // 3, j % 3)
+    return tuple(taps)
+
+
+STEM_K_TAPS = _k_taps()
+
+
+def stem_mma_matrix(w0: torch.Tensor) -> torch.Tensor:
+    """The kernel's B operand as a matrix: (32, Co) f32 holding the
+    bf16-rounded w0 (3, 3, 3, Co) in the K order of :data:`STEM_K_TAPS`,
+    zero rows for padding."""
+    wb = w0.detach().to(torch.bfloat16).float()
+    zero = torch.zeros(wb.shape[3], dtype=torch.float32, device=wb.device)
+    return torch.stack([zero if t is None else wb[t] for t in STEM_K_TAPS])
+
+
+def stem_mma_operand(w0: torch.Tensor) -> torch.Tensor:
+    """B in the per-lane fragment order the CUDA kernel loads: (16, 32)
+    int32, register r = (ks*4 + nt)*2 + half of lane l holds the bf16 pair
+    B[k0, n], B[k0 + 1, n] (low half first) with k0 = 16*ks + 8*half +
+    2*(l % 4) and n = 8*nt + l // 4, as ``mma.sync m16n8k16``'s col-major B
+    fragment wants it. Co must be 32."""
+    bits = stem_mma_matrix(w0).to(torch.bfloat16).view(torch.int16)
+    bits = bits.to(torch.int64) & 0xFFFF
+    lane = torch.arange(32, device=bits.device)
+    g, tig = lane // 4, lane % 4
+    regs = []
+    for ks in range(2):
+        for nt in range(4):
+            for half in range(2):
+                k0 = 16 * ks + 8 * half + 2 * tig
+                n = 8 * nt + g
+                regs.append(bits[k0, n] | (bits[k0 + 1, n] << 16))
+    word = torch.stack(regs)
+    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+
+
+def stem_tolerance(x: torch.Tensor, w0: torch.Tensor, b: torch.Tensor,
+                   want: torch.Tensor) -> torch.Tensor:
+    """How far the CUDA stem kernel may be from :func:`stem_fused_torch`'s
+    ``want`` (N, H/2, W/2, Co), elementwise:
+
+        ulp_bf16(want) + 2^-17 * (|b[co]| + max|x| * sum_{u,v,c} |w0_bf16[u,v,c,co]|)
+
+    The products are exact in f32 on both sides; only the order of the 27
+    additions differs. Each addition is off by at most one f32 ulp of the
+    running magnitude (2^-23 of the sum of |terms|, even if the tensor core
+    truncates), so 27 of them stay within 27 * 2^-23 * sum|terms|; the
+    factor 2^-17 = 64 * 2^-23 is that with a margin of 2. The final bf16
+    rounding can add one ulp. Bias, leaky and max pass the error on without
+    growing it."""
+    wb = w0.detach().to(torch.bfloat16).float()
+    xmax = x.detach().to(torch.bfloat16).float().abs().max()
+    terms = b.detach().float().abs() + xmax * wb.abs().sum(dim=(0, 1, 2))
+    wf = want.float()
+    _, e = torch.frexp(wf)
+    ulp = torch.where(wf == 0, torch.full_like(wf, 2.0 ** -133),
+                      torch.ldexp(torch.ones_like(wf), e - 8))
+    return ulp + 2.0 ** -17 * terms
 
 
 def fuse_stem(model, net: Network, impl: str = "off"):

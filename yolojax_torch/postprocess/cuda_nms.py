@@ -1,9 +1,11 @@
 """Wrapper of the CUDA greedy-NMS kernel (``csrc/nms_greedy.cu``).
 
 Replaces ``yolojax/postprocess/pallas_nms.py::nms_greedy_pallas``. The
-kernel is latency-bound by the K-step greedy sweep, not by bytes or FLOPs;
-it runs one block per image over a bit-packed overlap matrix in shared
-memory (see the note at the top of the source).
+kernel is latency-bound, not bound by bytes or FLOPs. It runs in two
+phases: a build over the whole card writes each image's lower-triangle
+"IoU > thr" bits into an (N, K, ceil(K/64)) uint64 scratch, and a sweep, one
+warp an image, resolves the greedy chain 64 boxes at a time in registers
+(see the note at the top of the source).
 
 For a CUDA tensor :func:`nms_greedy_cuda` launches the kernel and raises on
 any error; for a CPU tensor it runs the plain sweep
@@ -31,8 +33,8 @@ def _launcher():
     lib = build.load("nms_greedy", NVCC_FLAGS)
     fn = lib.nms_greedy_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.nms_greedy_error_string
     err.argtypes = [ctypes.c_int]
@@ -69,11 +71,14 @@ def nms_greedy_cuda(boxes: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
     if n == 0 or k == 0:
         return keep
+    # the build's overlap bits, read by the sweep
+    bits = torch.empty((n, k, -(-k // 64)), dtype=torch.int64,
+                       device=boxes.device)
     launch, err = _launcher()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         rc = launch(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                    n, k, float(iou_thresh), stream)
+                    bits.data_ptr(), n, k, float(iou_thresh), stream)
     if rc != 0:
         raise RuntimeError(f"nms_greedy_launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")
