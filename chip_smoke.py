@@ -25,9 +25,17 @@ Phases, each of which raises on failure:
    set of PPM images, then ``cli.eval`` with ``detect.fuse_stem=pallas``),
    count its kernel launches (each kernel once per batch), check its
    metrics and the fused-stem head against the unfused forward;
-6. time the paths and the kernels on the card (the NMS kernel's build and
-   sweep phases also apart), and check that the fused-stem batch beats the
-   unfused one.
+6. drive the training path as a user does (``cli.cache`` with a train and
+   a val phase, then ``cli.train`` on ``config.ini``: Darknet-19 at 416,
+   batch 64, six steps with checkpoints, the EMA and an in-training eval
+   through both kernels; then a resume to step 8), count its kernel
+   launches, load its checkpoint directory in ``cli.eval`` and, with the
+   EMA weights, ``cli.detect``; hold one f32 train step on the card
+   against the CPU (a small v2, TF32 off) and the augmentation apply on
+   the card against the CPU, and overfit a four-conv model on the card;
+7. time the paths and the kernels on the card (the NMS kernel's build and
+   sweep phases also apart; the b64@416 train step), and check that the
+   fused-stem batch beats the unfused one.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -40,6 +48,7 @@ import contextlib
 import copy
 import io
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -52,18 +61,28 @@ import numpy as np
 import torch
 
 from yolojax_torch.cli import cache as cache_cli
+from yolojax_torch.cli import detect as detect_cli
 from yolojax_torch.cli import eval as eval_cli
+from yolojax_torch.cli import train as train_cli
 from yolojax_torch.cli.detect import build_detector, build_serving, run_detect
 from yolojax_torch.config import load_config
 from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.convert.store import load_network_npz, save_network_npz
+from yolojax_torch.data import augment
 from yolojax_torch.data.cache import load_cache
 from yolojax_torch.data.loader import Loader, LoaderConfig, write_ppm
 from yolojax_torch.eval.evaluator import serving_weights
 from yolojax_torch.kernels import build
+from yolojax_torch.models import Model, get_model
 from yolojax_torch.nn import cuda_stem
 from yolojax_torch.nn.cuda_stem import stem_fused_cuda
-from yolojax_torch.nn.layers import conv2d, leaky_relu, max_pool
+from yolojax_torch.nn.layers import (
+    ConvSpec,
+    MaxPoolSpec,
+    conv2d,
+    leaky_relu,
+    max_pool,
+)
 from yolojax_torch.nn.stem import (
     fuse_stem,
     pack_stem_kernel,
@@ -78,6 +97,8 @@ from yolojax_torch.postprocess.nms import (
     nms_greedy_torch,
     postprocess_v2,
 )
+from yolojax_torch.train import step as train_step
+from yolojax_torch.train.checkpoint import Checkpointer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -108,6 +129,19 @@ STEM_CASES = ((BATCH, 416, 416), (1, 416, 416), (3, 320, 320),
 # input and output to bf16 at other points than conv 0 + pool do
 STEM_HEAD_RTOL = 3e-2
 EVAL_IMAGES, EVAL_BATCH = 64, 32
+# the train path: config.ini's batch of 64, six steps, then a resume to 8
+TRAIN_STEPS, RESUME_STEPS = 6, 8
+# one f32 train step on the card vs the CPU, TF32 off (summation order
+# only): loss terms relative, gradients and updated params of the tree's
+# max|.|, BN running statistics of their max|.|
+TRAIN_LOSS_RTOL, TRAIN_STATE_RTOL, TRAIN_BN_RTOL = 1e-5, 1e-4, 1e-5
+# the augment apply, absolute on [0, 1] images of up to 96 px: the card
+# divides by a scalar as a multiply by its reciprocal, so the resample's
+# scale may sit an ulp or two off the CPU's; sample positions up to 96 px
+# then move by up to 2 * 96 * 2^-23 px and the triangle weights by as much,
+# times |img - 0.5| <= 0.5 summed over two taps
+AUGMENT_ATOL = 4 * 96 * 2.0 ** -23 * 0.5
+OVERFIT_STEPS = 300
 
 
 def check(cond: bool, what: str) -> None:
@@ -410,8 +444,8 @@ def drive_main_path(cfg, npz: str, device, batch: int) -> dict:
               f"{len(dets)} detections", flush=True)
     check(len(det_lines.getvalue().splitlines())
           == sum(len(r[2]) for r in results), "one line per detection")
-    return {"launches": launches, "out": out, "canvases": canvases,
-            "infer": infer}
+    return {"launches": launches, "stem_launches": stem_fused_cuda.launches,
+            "out": out, "canvases": canvases, "infer": infer}
 
 
 def check_main_path(cfg, out: dict, device) -> tuple:
@@ -594,6 +628,319 @@ def check_fused_head(cfg, npz: str, cache_dir: str, device) -> None:
     print(f"  batch 0 ({x.shape[0]} images) head, fused stem vs unfused: max "
           f"err {rel:.2e} of max|ref| (limit {STEM_HEAD_RTOL:g})", flush=True)
     check(rel <= STEM_HEAD_RTOL, "fused-stem head == unfused head")
+
+
+# ---------------------------------------------------------------------------
+# the train path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def log_lines(name: str):
+    """The messages logged to logger ``name`` inside the block."""
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger(name)
+    logger.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+
+
+def metric_rows(logdir: str) -> list:
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def drive_train_path(tmp: str, device, n_images: int, overrides=()) -> dict:
+    """The training path as a user drives it: ``cli.cache`` over a fresh
+    set (its train and val phases), ``cli.train`` for six steps with
+    checkpoints every three, the EMA and an in-training eval at step six
+    with the fused stem, then the same command to step eight, which must
+    resume. Counts the kernel launches of the first run."""
+    names = load_config(["config.ini"]).names()
+    ann, img_dir = write_eval_set(os.path.join(tmp, "train_set"), names,
+                                  n_images)
+    cache_dir = os.path.join(tmp, "train_cache")
+    _, printed = run_cli(cache_cli, ["-c", "config.ini",
+                                     f"cache.basedir={cache_dir}",
+                                     f"cache.train=coco:{ann}:{img_dir}",
+                                     f"cache.val=coco:{ann}:{img_dir}",
+                                     *overrides])
+    print(f"phase train path: cli.cache: {' / '.join(printed.splitlines())}",
+          flush=True)
+    cfg = load_config(["config.ini"], overrides)
+    root = os.path.join(tmp, "train_logdir")
+    logdir = os.path.join(root, f"{cfg.model.model}_{cfg.model.inference}")
+    argv = ["-c", "config.ini", f"cache.basedir={cache_dir}",
+            f"train.logdir={root}", "train.save_steps=3",
+            "train.summary_steps=1", f"train.eval_steps={TRAIN_STEPS}",
+            "train.ema_decay=0.999", "detect.fuse_stem=pallas",
+            f"eval.batch_size={EVAL_BATCH}", *overrides]
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    nms_greedy_cuda.launches = 0
+    stem_fused_cuda.launches = 0
+    t0 = time.perf_counter()
+    with log_lines("train") as first:
+        run_cli(train_cli, argv + [f"train.steps={TRAIN_STEPS}", *cpu])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"nms_greedy": nms_greedy_cuda.launches,
+                "stem_fused": stem_fused_cuda.launches}
+    rows = metric_rows(logdir)
+    losses = [r for r in rows if "total" in r]
+    print(f"  cli.train to step {TRAIN_STEPS}: {seconds:.2f} s (first run: "
+          f"cuDNN plans, checkpoints, the eval); launches {launches}",
+          flush=True)
+    for r in losses:
+        print(f"  step {r['step']}: loss {r['total']:.4f} (coord "
+              f"{r['coord']:.3f} obj {r['object']:.3f} noobj "
+              f"{r['noobject']:.3f} cls {r['class']:.3f}) grad_norm "
+              f"{r['grad_norm']:.3f}, {r['images_per_sec']:.1f} img/s",
+              flush=True)
+    check([r["step"] for r in losses] == list(range(1, TRAIN_STEPS + 1)),
+          "every step logged once")
+    check(all(np.isfinite(r[k]) for r in losses for k in r),
+          "finite loss rows")
+    check([r["step"] for r in rows if "val_map" in r] == [TRAIN_STEPS],
+          "one in-training eval")
+    steps = Checkpointer(os.path.join(logdir, "ckpt")).steps()
+    check({3, TRAIN_STEPS} <= set(steps), "checkpoints at steps 3 and 6")
+    print(f"  val_map {[r['val_map'] for r in rows if 'val_map' in r]}, "
+          f"checkpoints {steps}", flush=True)
+    with log_lines("train") as resumed:
+        run_cli(train_cli, argv + [f"train.steps={RESUME_STEPS}", *cpu])
+    losses = [r["step"] for r in metric_rows(logdir) if "total" in r]
+    check(f"resumed from step {TRAIN_STEPS}" in resumed,
+          f"the second run resumed from step {TRAIN_STEPS}")
+    check(losses == list(range(1, RESUME_STEPS + 1)),
+          "every step logged once across the resume")
+    print(f"  cli.train to step {RESUME_STEPS}: "
+          f"{[m for m in resumed if m.startswith('resumed')]}, steps "
+          f"logged {losses}", flush=True)
+    del first
+    return {"launches": launches, "logdir": logdir, "cache_dir": cache_dir,
+            "image": os.path.join(img_dir, "000000.ppm"),
+            "images_per_sec": [r["images_per_sec"] for r in rows
+                               if "total" in r],
+            "seconds": seconds}
+
+
+def check_checkpoint_as_weights(tr: dict, device, overrides=()) -> None:
+    """``cli.eval`` and ``cli.detect`` (EMA weights) take the training
+    logdir as ``--weights``."""
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    metrics, _ = run_cli(eval_cli, [
+        "-c", "config.ini", "--weights", tr["logdir"], "--phase", "val",
+        f"cache.basedir={tr['cache_dir']}", "detect.fuse_stem=pallas",
+        f"eval.batch_size={EVAL_BATCH}", *overrides, *cpu])
+    check(metrics["num_images"] > 0 and np.isfinite(metrics["map"]),
+          "cli.eval on the checkpoint dir")
+    with log_lines("yolojax_torch.utils.restore") as restore:
+        _, printed = run_cli(detect_cli, [
+            "-c", "config.ini", "--weights", tr["logdir"], "--image",
+            tr["image"], "detect.use_ema=1", "detect.threshold=0.005",
+            *overrides, *cpu])
+    check("using EMA (Polyak-averaged) weights" in restore,
+          "cli.detect took the EMA weights")
+    print(f"  cli.eval --weights <logdir>: mAP {metrics['map']:.4f} over "
+          f"{metrics['num_images']} images, {metrics['num_detections']} "
+          f"detections; cli.detect --weights <logdir> detect.use_ema=1: "
+          f"{len(printed.splitlines())} detections ({restore[0]})",
+          flush=True)
+
+
+def _tree_err(got: dict, want: dict) -> float:
+    """max |got - want| over a dict of tensors, of the dict's max |want|."""
+    scale = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k].detach().cpu() - w.detach()).abs().max())
+               for k, w in want.items()) / max(scale, 1e-30)
+
+
+def check_train_card_vs_cpu(device) -> dict:
+    """One f32 train step of a small v2 (tiny @ 96, batch 4, momentum with
+    decay) from the same state on ``device`` and on the CPU, TF32 off;
+    and the augmentation apply with the same parameters on both."""
+    model = get_model("yolo2", "tiny", 20)
+    net = model.init(torch.Generator().manual_seed(SEED + 7), 96)
+    rng = np.random.RandomState(SEED + 7)
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (4, 8, 2)),
+                            rng.uniform(0.05, 0.4, (4, 8, 2))], -1)
+    batch = (torch.from_numpy(rng.uniform(0, 1, (4, 96, 96, 3)).astype(
+                 np.float32)),
+             torch.from_numpy(boxes.astype(np.float32)),
+             torch.from_numpy(rng.randint(0, 20, (4, 8)).astype(np.int32)),
+             torch.from_numpy(rng.uniform(0, 1, (4, 8)) < 0.6))
+    tx = train_step.make_optimizer(train_step.OptimizerConfig(
+        optimizer="momentum", learning_rate=1e-3, weight_decay=5e-4))
+    fn = train_step.make_train_step(model, tx, augment=False,
+                                    compute_dtype=torch.float32)
+    params = augment.draw_params(torch.Generator().manual_seed(SEED + 7), 4,
+                                 augment.AugmentConfig())
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in (torch.device("cpu"), device):
+            ts = train_step.TrainState(0, copy.deepcopy(net).to(dev), None)
+            ts.opt_state = tx.init(ts.params())
+            ts, m = fn(ts, tuple(t.to(dev) for t in batch), SEED, 96,
+                       with_grads=True)
+            p = augment.AugmentParams(**{k: v.to(dev) for k, v in
+                                         params.__dict__.items()})
+            img, bx, _ = augment.apply_geometry(
+                batch[0].to(dev), batch[1].to(dev), batch[3].to(dev), 80, p)
+            geo = img.cpu()
+            if dev.type == "cpu":  # the jitter gets the same input on both
+                jitter_in = img
+            img = augment.apply_color_jitter(jitter_in.to(dev), p)
+            out[dev.type] = (ts, m, geo, img.cpu(), bx.cpu())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    (ts_c, m_c, geo_c, img_c, bx_c), (ts_d, m_d, geo_d, img_d, bx_d) = (
+        out["cpu"], out[device.type])
+    loss_err = max(abs(float(m_d[k]) - float(m_c[k]))
+                   / max(abs(float(m_c[k])), 1e-30)
+                   for k in ("coord", "object", "noobject", "class", "total"))
+    grad_err = _tree_err(m_d["grads"], m_c["grads"])
+    param_err = _tree_err(ts_d.params(), {k: v.detach() for k, v in
+                                          ts_c.params().items()})
+    bn_err = _tree_err(dict(ts_d.net.named_buffers()),
+                       dict(ts_c.net.named_buffers()))
+    geo_err = float((geo_d - geo_c).abs().max())
+    jit_err = float((img_d - img_c).abs().max())
+    box_err = float((bx_d - bx_c).abs().max())
+    aug_err = max(geo_err, jit_err, box_err)
+    print(f"  train step tiny@96 b4 f32, {device.type} vs CPU (TF32 off): "
+          f"loss terms {loss_err:.2e} relative (limit {TRAIN_LOSS_RTOL:g}), "
+          f"gradients {grad_err:.2e} and updated params {param_err:.2e} of "
+          f"max (limit {TRAIN_STATE_RTOL:g}), BN stats {bn_err:.2e} (limit "
+          f"{TRAIN_BN_RTOL:g}); augment apply max abs err: geometry "
+          f"{geo_err:.2e}, jitter {jit_err:.2e}, boxes {box_err:.2e} (limit "
+          f"{AUGMENT_ATOL:g})", flush=True)
+    check(loss_err <= TRAIN_LOSS_RTOL, "train loss on the card == CPU")
+    check(grad_err <= TRAIN_STATE_RTOL and param_err <= TRAIN_STATE_RTOL,
+          "gradients and updated params on the card == CPU")
+    check(bn_err <= TRAIN_BN_RTOL, "BN running stats on the card == CPU")
+    check(aug_err <= AUGMENT_ATOL, "augment apply on the card == CPU")
+    return {"loss": loss_err, "grads": grad_err, "params": param_err,
+            "bn": bn_err, "augment": aug_err}
+
+
+def overfit_set(n: int = 8, dim: int = 48):
+    """tests/e2e/test_overfit.py's set: gray images with one colored
+    rectangle each; class = color."""
+    rng = np.random.RandomState(0)
+    images = np.full((n, dim, dim, 3), 0.5, np.float32)
+    boxes = np.zeros((n, 2, 4), np.float32)
+    classes = np.zeros((n, 2), np.int32)
+    valid = np.zeros((n, 2), bool)
+    for i in range(n):
+        w, h = rng.uniform(0.3, 0.5, 2)
+        cx = rng.uniform(w / 2 + 0.05, 1 - w / 2 - 0.05)
+        cy = rng.uniform(h / 2 + 0.05, 1 - h / 2 - 0.05)
+        x0, y0 = int((cx - w / 2) * dim), int((cy - h / 2) * dim)
+        x1, y1 = int((cx + w / 2) * dim), int((cy + h / 2) * dim)
+        images[i, y0:y1, x0:x1] = [0.9, 0.1, 0.1] if i % 2 == 0 else [
+            0.1, 0.1, 0.9]
+        boxes[i, 0] = [cx, cy, w, h]
+        classes[i, 0] = i % 2
+        valid[i, 0] = True
+    return images, boxes, classes, valid
+
+
+def check_overfit(device) -> tuple:
+    """The four-conv model of tests/e2e/test_overfit.py trained on its 8
+    images at 48 px with Adam 2e-3, in bf16 on ``device``: the last loss
+    must be under a tenth of the first."""
+    anchors = ((2.0, 2.0), (4.0, 4.0))
+    model = Model("yolo2", "overfit", "v2", (
+        ConvSpec(16, 3), MaxPoolSpec(), ConvSpec(32, 3), MaxPoolSpec(),
+        ConvSpec(32, 3), ConvSpec(2 * 7, 1, bn=False, act="linear")),
+        2, 4, anchors=anchors)
+    tx = train_step.make_optimizer(train_step.OptimizerConfig(
+        optimizer="adam", learning_rate=2e-3, weight_decay=0.0))
+    ts = train_step.init_train_state(model, tx,
+                                     torch.Generator().manual_seed(SEED), 48,
+                                     device)
+    fn = train_step.make_train_step(model, tx, augment=False,
+                                    compute_dtype=torch.bfloat16)
+    batch = tuple(torch.from_numpy(a).to(device) for a in overfit_set())
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        ts, m = fn(ts, batch, SEED, 48)
+        losses.append(m["total"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = float(losses[0]), float(losses[-1])
+    print(f"  overfit on {device.type} (bf16, {OVERFIT_STEPS} steps, Adam "
+          f"2e-3): loss {first:.4f} -> {last:.4f} ({last / first:.4f} of the "
+          f"first; limit 0.1)", flush=True)
+    check(np.isfinite(last) and last < 0.1 * first, "the model learns")
+    return first, last
+
+
+def train_batch(cfg, device) -> tuple:
+    """A device-resident batch of the config's shape: canvases in [0, 1)
+    and one to four boxes an image."""
+    n, canvas, g = (cfg.queue.batch_size, cfg.queue.canvas_dim,
+                    cfg.queue.max_boxes)
+    gen = torch.Generator(device).manual_seed(SEED + 8)
+    xy = 0.2 + 0.6 * torch.rand((n, g, 2), device=device, generator=gen)
+    wh = 0.05 + 0.35 * torch.rand((n, g, 2), device=device, generator=gen)
+    classes = torch.randint(0, cfg.build_model().num_classes, (n, g),
+                            device=device, generator=gen, dtype=torch.int32)
+    valid = torch.arange(g, device=device)[None, :] < torch.randint(
+        1, 5, (n, 1), device=device, generator=gen)
+    return (torch.rand((n, canvas, canvas, 3), device=device, generator=gen),
+            torch.cat([xy, wh], -1), classes, valid)
+
+
+def time_train_step(cfg, device, card: str) -> dict:
+    """The config's train step (augment, bf16 train-mode forward, loss,
+    backward, update) on a device-resident batch: CUDA events, median of 5
+    after 2 warm-up steps; the step's peak device memory; its profile."""
+    model = cfg.build_model()
+    tx = train_step.make_optimizer(cfg.optimizer)
+    state = {"ts": train_step.init_train_state(
+        model, tx, torch.Generator().manual_seed(SEED), cfg.model.dim,
+        device)}
+    fn = train_step.make_train_step(
+        model, tx, loss_cfg=cfg.loss_config(), aug_cfg=cfg.augment,
+        augment=True, compute_dtype=torch.bfloat16)
+    batch = train_batch(cfg, device)
+
+    def one():
+        state["ts"], m = fn(state["ts"], batch, SEED, cfg.model.dim)
+        return m
+
+    one()
+    times = cuda_ms(one, 5)  # after its own warm-up step: 2 in all
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = one()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(m["total"])), "finite timed train loss")
+    ms = statistics.median(times)
+    n = batch[0].shape[0]
+    print(f"  [{card}] train step b{n}@{cfg.model.dim} bf16 (canvas "
+          f"{batch[0].shape[1]}, augment + forward + loss + backward + "
+          f"{cfg.optimizer.optimizer} update), device-resident: {ms:.3f} "
+          f"ms/step (median of 5: {', '.join(f'{t:.3f}' for t in times)}), "
+          f"{n / ms * 1e3:.1f} img/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    profile_batch(one, card + ", train step")
+    del state
+    torch.cuda.empty_cache()
+    return {"ms": ms, "img_s": n / ms * 1e3, "peak_gib": peak / 2**30}
 
 
 def profile_batch(fn, card: str, top: int = 10) -> None:
@@ -883,20 +1230,38 @@ def main() -> int:
               == batches, "the eval path launched each kernel once a batch")
         check_fused_head(cfg, npz, ev["cache_dir"], device)
 
+        tr = drive_train_path(tmp, device, EVAL_IMAGES)
+        check(tr["launches"]["stem_fused"] == tr["launches"]["nms_greedy"]
+              == batches, "the in-training eval launched each kernel once "
+                          "a batch")
+        check_checkpoint_as_weights(tr, device)
+        check_train_card_vs_cpu(device)
+        check_overfit(device)
+
         print(f"phase times [{card}]:", flush=True)
         time_path(cfg, npz, model, run, card)
         time_fusion(progs, run["canvases"], card)
         stem_times = time_stem(progs, run["canvases"], card)
         nms_times = time_nms(shifted, valid, keep, cfg.detect.nms_iou, card)
         time_eval(ev["argv"], EVAL_IMAGES, card)
+        ips = tr["images_per_sec"]
+        print(f"  [{card}] cli.train images_per_sec, steps 1-{len(ips)}: "
+              f"{', '.join(f'{v:.1f}' for v in ips)} (median of steps 2-"
+              f"{len(ips)}: {statistics.median(ips[1:]):.1f})", flush=True)
+        time_train_step(load_config(["config.ini"]), device, card)
 
-    # launches: the eval path's run (this script's main path)
+    # launches: the eval path's run; launches_by_path: each path's own run
+    by_path = {name: {"serving": serving, "eval": ev["launches"][name],
+                      "train": tr["launches"][name]}
+               for name, serving in (("nms_greedy", run["launches"]),
+                                     ("stem_fused", run["stem_launches"]))}
     print(json.dumps({"kernels": [{
         "name": "nms_greedy",
         "route": "cuda",
         "source": "yolojax_torch/csrc/nms_greedy.cu",
         "replaces": "yolojax/postprocess/pallas_nms.py:93",
         "launches": ev["launches"]["nms_greedy"],
+        "launches_by_path": by_path["nms_greedy"],
         "max_abs_err": nms_err,
         **nms_times,
         "library_ms": None,
@@ -907,6 +1272,7 @@ def main() -> int:
         "source": "yolojax_torch/csrc/stem_fused.cu",
         "replaces": "yolojax/nn/pallas_stem.py:83",
         "launches": ev["launches"]["stem_fused"],
+        "launches_by_path": by_path["stem_fused"],
         "max_abs_err": stem_err,
         "max_err_over_tolerance": stem_ratio,
         **stem_times,

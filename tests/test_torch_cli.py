@@ -1,6 +1,7 @@
 """The port's detect CLI: ``python -m yolojax_torch.cli.detect`` end to end
-on the CPU with jax blocked, and the settings it does not port yet, which
-raise instead of being ignored."""
+on the CPU with jax blocked, and the settings it does not port yet (or
+that do not apply to the weights given), which raise instead of being
+ignored."""
 
 import os
 import subprocess
@@ -60,14 +61,17 @@ def test_detect_module_entry_point(tiny_setup):
     assert cv2.imread(out).shape == (90, 120, 3)
 
 
-@pytest.mark.parametrize("overrides", [
-    ["detect.use_int8=1"], ["detect.use_ema=1"],
-    ["detect.use_int8=1", "detect.fuse_stem=xla"],  # the int8 fused stem
+@pytest.mark.parametrize("overrides,error,match", [
+    (["detect.use_int8=1"], NotImplementedError, "detect.use_int8"),
+    # EMA weights live in training checkpoints, never in a weights file
+    (["detect.use_ema=1"], ValueError, "use_ema needs a checkpoint dir"),
+    (["detect.use_int8=1", "detect.fuse_stem=xla"],  # the int8 fused stem
+     NotImplementedError, "detect.use_int8"),
 ], ids=["detect.use_int8=1", "detect.use_ema=1", "detect.fuse_stem=xla"])
-def test_unported_detect_settings_raise(tiny_setup, overrides):
+def test_unported_detect_settings_raise(tiny_setup, overrides, error, match):
     ini, npz, _ = tiny_setup
     cfg = load_config([ini], overrides)
-    with pytest.raises(NotImplementedError, match=overrides[0].split("=")[0]):
+    with pytest.raises(error, match=match):
         detect.build_detector(cfg, npz, device="cpu")
 
 
@@ -103,9 +107,12 @@ def test_unported_detect_flags_raise(tiny_setup, monkeypatch, flag):
 
 def test_unported_weight_sources_raise(tmp_path):
     model = get_model("yolo2", "tiny", 20)
-    for path in (str(tmp_path / "w.weights"), str(tmp_path),
+    for path in (str(tmp_path / "w.weights"),
                  str(tmp_path / "model.ckpt-1000")):
         with pytest.raises(NotImplementedError):
             load_weights(path, model)
+    # a directory is a training checkpoint dir (ported); this one has none
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        load_weights(str(tmp_path), model)
     with pytest.raises(ValueError, match="unrecognized"):
         load_weights(str(tmp_path / "w.bin"), model)

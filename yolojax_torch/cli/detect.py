@@ -8,11 +8,13 @@ Port of ``cli/detect.py``. Usage:
   python -m yolojax_torch.cli.detect -c config.ini --weights W.npz \
       --image IMG [--image IMG2 ...] [--out OUT] [--device cpu]
 
-``detect.fuse_stem`` = ``pallas`` or ``auto`` runs conv0 + pool 1 as the
-CUDA stem kernel (its plain version on the CPU), ``xla`` as the packed conv
-in PyTorch. Not ported yet (they raise NotImplementedError): ``--artifact``,
-``--stdin``, ``--data-parallel``, ``detect.use_int8`` (with or without the
-fused stem) and ``detect.use_ema``.
+``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
+directory (``detect.use_ema=1``: its EMA weights). ``detect.fuse_stem`` =
+``pallas`` or ``auto`` runs conv0 + pool 1 as the CUDA stem kernel (its
+plain version on the CPU), ``xla`` as the packed conv in PyTorch. Not
+ported yet (they raise NotImplementedError): ``--artifact``, ``--stdin``,
+``--data-parallel`` and ``detect.use_int8`` (with or without the fused
+stem).
 """
 
 from __future__ import annotations
@@ -38,13 +40,9 @@ log = logging.getLogger("detect")
 
 
 def _check_ported(cfg) -> None:
-    d = cfg.detect
-    if d.use_int8:
+    if cfg.detect.use_int8:
         raise NotImplementedError("detect.use_int8: the int8 trunk is not "
                                   "ported yet (ROADMAP queue 1, int8)")
-    if d.use_ema:
-        raise NotImplementedError("detect.use_ema: Orbax checkpoints are not "
-                                  "ported yet (ROADMAP queue 1)")
 
 
 def build_serving(cfg, weights_path: str, *, device=None):
@@ -57,7 +55,7 @@ def build_serving(cfg, weights_path: str, *, device=None):
     model = cfg.build_model()
     names = cfg.names()
     dim = cfg.model.dim
-    net = load_weights(weights_path, model)
+    net = load_weights(weights_path, model, use_ema=cfg.detect.use_ema)
     model, net = fold_bn(model, net, eps=cfg.model.bn_eps)
     model, net = fuse_stem(model, net, impl=cfg.detect.fuse_stem)
     compute = torch.float32 if device.type == "cpu" else torch.bfloat16
@@ -186,7 +184,8 @@ def run_detect(cfg, weights_path: str,
 
 def main():
     parser = make_parser(__doc__)
-    parser.add_argument("--weights", default="", help=".npz param store")
+    parser.add_argument("--weights", default="",
+                        help=".npz param store or training logdir")
     parser.add_argument("--image", action="append", default=[],
                         help="image path (repeatable)")
     parser.add_argument("--out", default="", help="annotated output path/dir")

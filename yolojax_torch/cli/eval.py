@@ -9,11 +9,12 @@ Usage:
       [--phase test] [--coco] [--dump out.json] [--max-batches N] \\
       [--device cpu] [section.key=value ...]
 
+``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
+directory (``detect.use_ema=1``: its EMA weights).
 ``detect.fuse_stem=pallas`` (or ``auto``) runs conv0 + pool 1 as the CUDA
 stem kernel. Convs run in f32 on the CPU and in bf16 on the card. Not
 ported yet (they raise NotImplementedError): ``--artifact``,
-``detect.use_int8``, ``detect.use_ema``, ``eval.data_parallel=on`` and
-``eval.distributed=1``.
+``detect.use_int8``, ``eval.data_parallel=on`` and ``eval.distributed=1``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from yolojax_torch.utils.restore import load_weights
 
 def main():
     parser = make_parser(__doc__)
-    parser.add_argument("--weights", default="", help=".npz param store")
+    parser.add_argument("--weights", default="",
+                        help=".npz param store or training logdir")
     parser.add_argument("--artifact", default="", help="not ported yet")
     parser.add_argument("--phase", default="test")
     parser.add_argument("--max-batches", type=int, default=0)
@@ -49,15 +51,13 @@ def main():
                                   "queue 1, serving daemon and export)")
     if not args.weights:
         parser.error("--weights is required")
-    if cfg.detect.use_ema:
-        raise NotImplementedError("detect.use_ema: Orbax checkpoints are not "
-                                  "ported yet (ROADMAP queue 1)")
 
     model = cfg.build_model()
     names = cfg.names()
     cache = load_cache(cfg.cache.basedir, args.phase)
     metrics = evaluate_model(
-        model, load_weights(args.weights, model), cache,
+        model, load_weights(args.weights, model, use_ema=cfg.detect.use_ema),
+        cache,
         input_dim=cfg.model.dim,
         batch_size=cfg.eval.batch_size,
         nms_iou=cfg.detect.nms_iou,

@@ -1,13 +1,11 @@
 """Layered INI config, the dialect of ``yolojax/config/__init__.py``.
 
 ``-c`` takes several files (later override earlier) and ``section.key=value``
-overrides beat both. The port parses the sections its entry points read,
-``[model]``, ``[cache]``, ``[detect]`` and ``[eval]``, into typed
-dataclasses. The other sections of the shared dialect (``[queue]``,
-``[data_augmentation]``, ``[train]``, ``[optimizer]``, ``[summary]``) are
-accepted and kept as raw strings in :attr:`YoloJaxConfig.unparsed` until the
-slices that read them port their dataclasses, so every ``config/*.ini``
-loads unchanged. Unknown sections and keys warn instead of failing.
+overrides beat both. Sections: ``[model]`` ``[cache]`` ``[queue]``
+``[data_augmentation]`` ``[train]`` ``[optimizer]`` ``[detect]``
+``[summary]`` ``[eval]``, parsed into typed dataclasses. Optimizer keys are
+accepted in ``[train]`` too, and ``[summary]`` aliases the train-section
+summary knobs. Unknown sections and keys warn instead of failing.
 """
 
 from __future__ import annotations
@@ -16,7 +14,12 @@ import configparser
 import dataclasses
 import logging
 import os
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+from yolojax_torch.data.augment import AugmentConfig
+from yolojax_torch.data.loader import LoaderConfig
+from yolojax_torch.train.losses import YoloV1LossConfig, YoloV2LossConfig
+from yolojax_torch.train.step import OptimizerConfig
 
 log = logging.getLogger(__name__)
 
@@ -62,6 +65,37 @@ class CacheConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    logdir: str = "logdir"
+    steps: int = 100_000
+    save_steps: int = 1000
+    keep_checkpoints: int = 5      # checkpoints kept (newest first)
+    summary_steps: int = 20
+    image_summary_steps: int = 0   # 0 disables box-drawn image dumps
+    histogram_steps: int = 0       # 0 disables param/grad histograms
+    eval_steps: int = 0            # run val-phase mAP every N steps (0 off)
+    seed: int = 0
+    multi_scale: bool = False
+    multi_scale_min: int = 320
+    multi_scale_max: int = 608
+    multi_scale_every: int = 10
+    compute_dtype: str = "bfloat16"
+    remat: bool = False            # recompute the forward in the backward
+    tensorboard: bool = False      # not ported (raises)
+    profile_steps: int = 0         # torch.profiler trace of step N
+    profile_port: int = 0          # live profiler server: not ported (raises)
+    debug_nans: bool = False       # autograd anomaly detection
+    halt_on_nonfinite: bool = True # stop + forensic save on a NaN/inf loss
+    # multi-device: not ported (values other than these raise)
+    mesh_data: int = 0
+    mesh_model: int = 1
+    zero: bool = False
+    coordinator: str = ""
+    num_processes: int = 0
+    process_id: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectConfig:
     threshold: float = 0.3
     nms_iou: float = 0.4
@@ -70,7 +104,7 @@ class DetectConfig:
     candidates: str = "auto"       # top-k select: auto|exact|approx (exact)
     stretch: bool = False          # plain resize instead of letterbox
     use_int8: bool = False         # int8 conv trunk (not ported yet)
-    use_ema: bool = False          # Orbax EMA weights (not ported yet)
+    use_ema: bool = False          # checkpoint dirs: the EMA weights
     calib_images: int = 8          # int8: images used for activation calib
     calib_percentile: float = 100.0  # int8: |act| percentile for scales
     quant_bits: int = 8            # int8 path code width
@@ -105,11 +139,12 @@ class EvalConfig:
 class YoloJaxConfig:
     model: ModelConfig = ModelConfig()
     cache: CacheConfig = CacheConfig()
+    queue: LoaderConfig = LoaderConfig()
+    augment: AugmentConfig = AugmentConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    train: TrainConfig = TrainConfig()
     detect: DetectConfig = DetectConfig()
     eval: EvalConfig = EvalConfig()
-    # sections accepted but not parsed yet: {section: {key: raw value}}
-    unparsed: Mapping[str, Mapping[str, str]] = dataclasses.field(
-        default_factory=dict)
 
     def names(self) -> Tuple[str, ...]:
         if self.model.names_file and os.path.exists(self.model.names_file):
@@ -128,6 +163,30 @@ class YoloJaxConfig:
             anchors=self.model.anchors or None,
             boxes_per_cell=self.model.boxes_per_cell,
             grid=self.model.grid,
+        )
+
+    def loss_config(self):
+        m = self.model
+
+        def pick(v, d):
+            return d if v < 0 else v
+
+        if self.model.model == "yolo2":
+            return YoloV2LossConfig(
+                coord_scale=pick(m.coord_scale, 1.0),
+                object_scale=pick(m.object_scale, 5.0),
+                noobject_scale=pick(m.noobject_scale, 1.0),
+                class_scale=pick(m.class_scale, 1.0),
+                iou_thresh=m.iou_thresh,
+                rescore=m.rescore,
+                prior_scale=m.prior_scale,
+            )
+        return YoloV1LossConfig(
+            coord_scale=pick(m.coord_scale, 5.0),
+            object_scale=pick(m.object_scale, 1.0),
+            noobject_scale=pick(m.noobject_scale, 0.5),
+            class_scale=pick(m.class_scale, 1.0),
+            rescore=m.rescore,
         )
 
     def cache_datasets(self, phase: str) -> List[dict]:
@@ -149,11 +208,28 @@ class YoloJaxConfig:
 _SECTION_TYPES = {
     "model": ModelConfig,
     "cache": CacheConfig,
+    "queue": LoaderConfig,
+    "data_augmentation": AugmentConfig,
+    "train": TrainConfig,
+    "optimizer": OptimizerConfig,
     "detect": DetectConfig,
     "eval": EvalConfig,
 }
-_UNPARSED_SECTIONS = ("queue", "data_augmentation", "train", "optimizer",
-                      "summary")
+_SECTION_FIELD = {"data_augmentation": "augment"}
+# optimizer keys are accepted in [train] too
+_TRAIN_OPTIMIZER_KEYS = {f.name: f
+                         for f in dataclasses.fields(OptimizerConfig)}
+# [summary] aliases onto the train-section knobs; explicit [train] keys win
+_SUMMARY_KEYS = {
+    "scalar": "summary_steps",
+    "scalar_steps": "summary_steps",
+    "summary_steps": "summary_steps",
+    "histogram": "histogram_steps",
+    "histogram_steps": "histogram_steps",
+    "image": "image_summary_steps",
+    "image_steps": "image_summary_steps",
+    "image_summary_steps": "image_summary_steps",
+}
 
 
 def _coerce(field: dataclasses.Field, raw: str):
@@ -192,16 +268,27 @@ def load_config(
             raise ValueError(
                 f"malformed override {ov!r}; expected section.key=value"
             )
+        if section == "summary" and name in _SUMMARY_KEYS:
+            section, name = "train", _SUMMARY_KEYS[name]
         if not parser.has_section(section):
             parser.add_section(section)
         parser.set(section, name, value.strip())
 
+    if parser.has_section("summary"):
+        for name, raw in parser.items("summary"):
+            tgt = _SUMMARY_KEYS.get(name)
+            if tgt is None:
+                log.warning("unknown key summary.%s ignored", name)
+                continue
+            if not parser.has_section("train"):
+                parser.add_section("train")
+            if not parser.has_option("train", tgt):
+                parser.set("train", tgt, raw)
+        parser.remove_section("summary")
+
     kwargs: Dict[str, object] = {}
-    unparsed: Dict[str, Dict[str, str]] = {}
+    opt_kwargs: Dict[str, object] = {}
     for section in parser.sections():
-        if section in _UNPARSED_SECTIONS:
-            unparsed[section] = dict(parser.items(section))
-            continue
         if section not in _SECTION_TYPES:
             log.warning("unknown config section [%s] ignored", section)
             continue
@@ -209,9 +296,17 @@ def load_config(
         fields = {f.name: f for f in dataclasses.fields(cls)}
         sec_kwargs = {}
         for name, raw in parser.items(section):
+            if section == "train" and name in _TRAIN_OPTIMIZER_KEYS:
+                opt_kwargs[name] = _coerce(_TRAIN_OPTIMIZER_KEYS[name], raw)
+                continue
             if name not in fields:
                 log.warning("unknown key %s.%s ignored", section, name)
                 continue
             sec_kwargs[name] = _coerce(fields[name], raw)
-        kwargs[section] = cls(**sec_kwargs)
-    return YoloJaxConfig(unparsed=unparsed, **kwargs)
+        if section == "optimizer":
+            opt_kwargs.update(sec_kwargs)
+        else:
+            kwargs[_SECTION_FIELD.get(section, section)] = cls(**sec_kwargs)
+    if opt_kwargs:
+        kwargs["optimizer"] = OptimizerConfig(**opt_kwargs)
+    return YoloJaxConfig(**kwargs)

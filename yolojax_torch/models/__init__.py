@@ -52,13 +52,19 @@ class Model:
         return init_network(generator, self.specs, 3, (input_dim, input_dim))
 
     def apply(self, net: Network, images: torch.Tensor, *,
-              compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-        """images: (N, H, W, 3) in [0, 1]. Returns the f32 head."""
-        out = net(images, compute_dtype=compute_dtype)
+              compute_dtype: torch.dtype = torch.bfloat16,
+              train: bool = False,
+              generator: Optional[torch.Generator] = None):
+        """images: (N, H, W, 3) in [0, 1]. Returns the f32 head; in train
+        mode ``(head, new_bn_state)`` (see :meth:`Network.forward`)."""
+        out = net(images, compute_dtype=compute_dtype, train=train,
+                  generator=generator)
+        if train:
+            out, new_state = out
         if self.kind == "v2":
             n, h, w, _ = out.shape
             out = out.reshape(n, h, w, self.num_anchors, 5 + self.num_classes)
-        return out
+        return (out, new_state) if train else out
 
 
 def get_model(

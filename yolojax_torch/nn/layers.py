@@ -11,10 +11,10 @@ channels_last NCHW view, and its output is permuted back, so no layer
 copies between layouts. Conv kernels are stored OIHW (PyTorch's order);
 ``yolojax_torch.convert.interchange`` converts from and to yolojax's HWIO.
 
-Only the inference forward is ported here, with the fused stem
-(``nn/stem.py``: ``StemSpec`` / ``NoOpSpec``, weights in a
-:class:`StemLayer`); train-mode BN and dropout and the int8 trunk come in
-later slices.
+The forward runs in eval mode (running BN statistics, the fused stem of
+``nn/stem.py``: ``StemSpec`` / ``NoOpSpec``, weights in a
+:class:`StemLayer`) or in train mode (batch BN statistics, dropout); the
+int8 trunk comes in a later slice.
 """
 
 from __future__ import annotations
@@ -224,7 +224,7 @@ class DenseLayer(nn.Module):
 
 
 class Network(nn.Module):
-    """A spec list and its weights; ``forward`` is yolojax's eval-mode
+    """A spec list and its weights; ``forward`` is yolojax's
     ``apply_network``."""
 
     def __init__(self, specs: Sequence[LayerSpec],
@@ -237,15 +237,34 @@ class Network(nn.Module):
     def forward(self, images: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 bn_eps: float = 1e-5,
-                leaky_alpha: float = 0.1) -> torch.Tensor:
+                leaky_alpha: float = 0.1,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                bn_momentum: float = 0.99):
         """images (N, H, W, C) -> f32 output (NHWC, or (N, F) after a
         dense head). Conv outputs are stored in ``compute_dtype``; the
-        bias/BN + leaky epilogue runs in f32 and is cast back."""
+        bias/BN + leaky epilogue runs in f32 and is cast back.
+
+        Eval mode returns the output and leaves the BN buffers alone.
+        Train mode returns ``(output, new_bn_state)``: BN normalises with
+        the batch's mean and biased variance (two passes in f32, gradients
+        flow through both), and ``new_bn_state`` maps each BN conv's name
+        to its running ``(mean, var)`` moved to ``run * bn_momentum +
+        batch * (1 - bn_momentum)`` (detached; the caller stores them).
+        ``F.batch_norm(training=True)`` is not used: it would move the
+        running variance with the unbiased estimate, and its ``momentum``
+        means 1 - ``bn_momentum``. Dropout keeps each unit with
+        probability 1 - rate, drawn from ``generator``, and scales the kept
+        ones by 1 / (1 - rate)."""
         x = images
         outputs = []
+        new_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         for i, spec in enumerate(self.specs):
             tname = type(spec).__name__
             if tname == "StemSpec":  # fused conv0 + pool (nn/stem.py)
+                if train:
+                    raise ValueError("train mode needs the unfused model: the "
+                                     "fused stem holds BN-folded weights")
                 layer = getattr(self, _conv_name(i))
                 if spec.impl == "xla":
                     from yolojax_torch.nn.stem import stem_forward
@@ -263,8 +282,18 @@ class Network(nn.Module):
                 y = conv2d(x, layer.w, spec.stride,
                            compute_dtype=compute_dtype).float()
                 if spec.bn:
-                    y = batch_norm(y, layer.scale, layer.bias, layer.mean,
-                                   layer.var, eps=bn_eps)
+                    if train:
+                        m = y.mean(dim=(0, 1, 2))
+                        v = torch.square(y - m).mean(dim=(0, 1, 2))
+                        new_state[_conv_name(i)] = (
+                            layer.mean * bn_momentum
+                            + m.detach() * (1 - bn_momentum),
+                            layer.var * bn_momentum
+                            + v.detach() * (1 - bn_momentum))
+                    else:
+                        m, v = layer.mean, layer.var
+                    y = batch_norm(y, layer.scale, layer.bias, m, v,
+                                   eps=bn_eps)
                 else:
                     y = y + layer.b.float()
                 if spec.act == "leaky":
@@ -288,11 +317,30 @@ class Network(nn.Module):
                     y = leaky_relu(y, leaky_alpha)
                 x = y.to(compute_dtype)
             elif isinstance(spec, DropoutSpec):
-                pass  # eval mode: identity
+                if train:  # eval mode: identity
+                    if generator is None:
+                        raise ValueError("dropout in train mode needs a "
+                                         "generator")
+                    keep = torch.rand(x.shape, generator=generator,
+                                      device=x.device) < 1.0 - spec.rate
+                    x = torch.where(keep, x / (1.0 - spec.rate),
+                                    torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
             else:
                 raise TypeError(f"unknown layer spec: {spec!r}")
             outputs.append(x)
+        if train:
+            return x.float(), new_state
         return x.float()
+
+    def load_bn_state(self, new_state: Dict[str, Tuple[torch.Tensor,
+                                                       torch.Tensor]]):
+        """Store a train-mode forward's running statistics in the buffers."""
+        with torch.no_grad():
+            for name, (mean, var) in new_state.items():
+                layer = getattr(self, name)
+                layer.mean.copy_(mean)
+                layer.var.copy_(var)
 
 
 def init_network(generator: torch.Generator, specs: Sequence[LayerSpec],
