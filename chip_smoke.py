@@ -15,7 +15,9 @@ Phases, each of which raises on failure:
    kernel within ``nn/stem.py::stem_tolerance`` on six input shapes (one
    ragged) with random weights, random weights and a cancelling bias, and
    the seeded Darknet-19's conv0 weights (and ``detect.fuse_stem=auto``
-   launches it, as ``pallas`` does);
+   launches it, as ``pallas`` does), the int8 requant kernel's codes equal
+   on seven cases (both modes), and the int8 product's int32 sums equal to
+   an exact CPU product on seven convs and dense layers;
 4. drive the serving path as a user does (``build_detector`` and
    ``run_detect`` on YOLOv2 Darknet-19 at 416, full width, random weights
    from a seed), count the kernel launches of that run, check the path's
@@ -33,9 +35,16 @@ Phases, each of which raises on failure:
    EMA weights, ``cli.detect``; hold one f32 train step on the card
    against the CPU (a small v2, TF32 off) and the augmentation apply on
    the card against the CPU, and overfit a four-conv model on the card;
-7. time the paths and the kernels on the card (the NMS kernel's build and
-   sweep phases also apart; the b64@416 train step), and check that the
-   fused-stem batch beats the unfused one.
+7. drive the int8 path (``detect.use_int8=1``) as a user does:
+   ``cli.detect --image``, ``cli.detect --stdin`` (output order) and
+   ``cli.eval``, each counting its launches; hold small int8 models'
+   codes on the card against the CPU, and the overfit model's int8 mAP
+   against its f32 mAP;
+8. time the paths and the kernels on the card (the NMS kernel's build and
+   sweep phases also apart; the b128 int8 batch beside the bf16 ones, with
+   every requant launch of it held against the plain version on its own
+   sums; the b64@416 train step), and check that the fused-stem batch
+   beats the unfused one.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -56,6 +65,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -69,9 +79,9 @@ from yolojax_torch.config import load_config
 from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.convert.store import load_network_npz, save_network_npz
 from yolojax_torch.data import augment
-from yolojax_torch.data.cache import load_cache
+from yolojax_torch.data.cache import build_cache, load_cache
 from yolojax_torch.data.loader import Loader, LoaderConfig, write_ppm
-from yolojax_torch.eval.evaluator import serving_weights
+from yolojax_torch.eval.evaluator import evaluate_model, serving_weights
 from yolojax_torch.kernels import build
 from yolojax_torch.models import Model, get_model
 from yolojax_torch.nn import cuda_stem
@@ -79,6 +89,7 @@ from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import (
     ConvSpec,
     MaxPoolSpec,
+    _darknet_padding,
     conv2d,
     leaky_relu,
     max_pool,
@@ -90,12 +101,22 @@ from yolojax_torch.nn.stem import (
     stem_tolerance,
     unpack_stem_kernel,
 )
+from yolojax_torch.ops.boxes import iou_matrix
 from yolojax_torch.postprocess import cuda_nms
 from yolojax_torch.postprocess.cuda_nms import MAX_K, nms_greedy_cuda
 from yolojax_torch.postprocess.nms import (
     CLASS_OFFSET,
     nms_greedy_torch,
     postprocess_v2,
+)
+from yolojax_torch.quantize import cuda_int8, ptq
+from yolojax_torch.quantize.cuda_int8 import int8_requant_cuda
+from yolojax_torch.quantize.int8_ops import (
+    gemm_operand,
+    int8_conv,
+    int8_conv_exact,
+    int8_matmul,
+    int8_requant_torch,
 )
 from yolojax_torch.train import step as train_step
 from yolojax_torch.train.checkpoint import Checkpointer
@@ -116,7 +137,8 @@ AREA_OPS = 5  # 2 sub, 2 clamp, 1 mul per box
 FORWARD_RTOL = 1e-4
 # every kernel of the port, with its own nvcc flags (as its wrapper loads it)
 KERNELS = (("nms_greedy", cuda_nms.NVCC_FLAGS),
-           ("stem_fused", cuda_stem.NVCC_FLAGS))
+           ("stem_fused", cuda_stem.NVCC_FLAGS),
+           ("int8_requant", cuda_int8.NVCC_FLAGS))
 # (N, H, W) inputs of the stem kernel against its plain version: the eval
 # batch, one image, a smaller and a larger (multiscale 608) square, a tiny
 # one, and a ragged one (W/2 = 67 is no multiple of the tile's 32 columns,
@@ -142,6 +164,20 @@ TRAIN_LOSS_RTOL, TRAIN_STATE_RTOL, TRAIN_BN_RTOL = 1e-5, 1e-4, 1e-5
 # times |img - 0.5| <= 0.5 summed over two taps
 AUGMENT_ATOL = 4 * 96 * 2.0 ** -23 * 0.5
 OVERFIT_STEPS = 300
+# the int8 head (a bf16 conv on bf16-rounded dequantized codes) on the card
+# vs the CPU: each side within one bf16 ulp of the exact sum, so two ulps
+# of the largest value (tests/test_torch_ptq.py::HEAD_RTOL)
+INT8_HEAD_RTOL = 2.0 ** -7
+# the overfit model's int8 mAP may sit this far below or above its f32 mAP
+# (the spirit of yolojax's int8 mAP-delta gate)
+INT8_MAP_TOL = 0.05
+# f32 operations of one requant value: convert, FMA, compare + multiply +
+# select (leaky), multiply, round, two clamps
+REQUANT_OPS = 9
+# the plain requant on the card runs in chunks of about this many values
+# (whole rows), so its float64 temporaries stay a few GB
+PLAIN_CHUNK = 1 << 26
+INT8_PATHS = ("int8_detect", "int8_stdin", "int8_eval")
 
 
 def check(cond: bool, what: str) -> None:
@@ -430,6 +466,7 @@ def drive_main_path(cfg, npz: str, device, batch: int) -> dict:
         torch.cuda.synchronize()
     nms_greedy_cuda.launches = 0
     stem_fused_cuda.launches = 0
+    int8_requant_cuda.launches = 0
     with contextlib.redirect_stdout(io.StringIO()) as det_lines:
         results = run_detect(cfg, npz, images, detector=detector)
     out = infer(canvases)
@@ -437,7 +474,8 @@ def drive_main_path(cfg, npz: str, device, batch: int) -> dict:
         torch.cuda.synchronize()
     launches = nms_greedy_cuda.launches
     print(f"phase serving path: nms_greedy launches {launches}, stem_fused "
-          f"launches {stem_fused_cuda.launches} (detect.fuse_stem="
+          f"launches {stem_fused_cuda.launches}, int8_requant launches "
+          f"{int8_requant_cuda.launches} (detect.fuse_stem="
           f"{cfg.detect.fuse_stem})", flush=True)
     for label, raw, dets in results:
         print(f"  run_detect {label} {raw.shape[1]}x{raw.shape[0]}: "
@@ -445,6 +483,7 @@ def drive_main_path(cfg, npz: str, device, batch: int) -> dict:
     check(len(det_lines.getvalue().splitlines())
           == sum(len(r[2]) for r in results), "one line per detection")
     return {"launches": launches, "stem_launches": stem_fused_cuda.launches,
+            "int8_launches": int8_requant_cuda.launches,
             "out": out, "canvases": canvases, "infer": infer}
 
 
@@ -581,13 +620,15 @@ def drive_eval_path(npz: str, tmp: str, device, n_images: int,
         torch.cuda.synchronize()
     nms_greedy_cuda.launches = 0
     stem_fused_cuda.launches = 0
+    int8_requant_cuda.launches = 0
     t0 = time.perf_counter()
     metrics, printed = run_cli(eval_cli, argv)
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"nms_greedy": nms_greedy_cuda.launches,
-                "stem_fused": stem_fused_cuda.launches}
+                "stem_fused": stem_fused_cuda.launches,
+                "int8_requant": int8_requant_cuda.launches}
     lines = printed.splitlines()
     for line in lines[:-1]:
         print(f"  cli.eval: {line}", flush=True)
@@ -684,6 +725,7 @@ def drive_train_path(tmp: str, device, n_images: int, overrides=()) -> dict:
         torch.cuda.synchronize()
     nms_greedy_cuda.launches = 0
     stem_fused_cuda.launches = 0
+    int8_requant_cuda.launches = 0
     t0 = time.perf_counter()
     with log_lines("train") as first:
         run_cli(train_cli, argv + [f"train.steps={TRAIN_STEPS}", *cpu])
@@ -691,7 +733,8 @@ def drive_train_path(tmp: str, device, n_images: int, overrides=()) -> dict:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"nms_greedy": nms_greedy_cuda.launches,
-                "stem_fused": stem_fused_cuda.launches}
+                "stem_fused": stem_fused_cuda.launches,
+                "int8_requant": int8_requant_cuda.launches}
     rows = metric_rows(logdir)
     losses = [r for r in rows if "total" in r]
     print(f"  cli.train to step {TRAIN_STEPS}: {seconds:.2f} s (first run: "
@@ -884,7 +927,7 @@ def check_overfit(device) -> tuple:
           f"2e-3): loss {first:.4f} -> {last:.4f} ({last / first:.4f} of the "
           f"first; limit 0.1)", flush=True)
     check(np.isfinite(last) and last < 0.1 * first, "the model learns")
-    return first, last
+    return first, last, model, ts.net
 
 
 def train_batch(cfg, device) -> tuple:
@@ -1047,13 +1090,17 @@ def check_auto_launches(npz: str, device) -> None:
 
 
 def time_fusion(progs: dict, canvases, card: str) -> None:
-    """The device-resident batch with the stem unfused and fused, in turns
-    (off, pallas, pallas, off), with peak device memory; then the profile
-    of one fused batch."""
+    """The device-resident batch through each serving program in turns
+    (bf16 unfused and fused stem, int8 with the stem off and packed, then
+    back), with peak device memory; then the profile of one fused bf16 and
+    one int8 batch."""
     batch, dim = canvases.shape[0], canvases.shape[1]
+    turns = ("off", "pallas", "int8-off", "int8-xla")
     times = {fuse: [] for fuse in progs}
     peaks = dict.fromkeys(progs, 0)
-    for fuse in ("off", "pallas", "pallas", "off"):
+    for fuse in turns + turns[::-1]:
+        if fuse not in progs:
+            continue
         infer_fn, net = progs[fuse]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1062,16 +1109,20 @@ def time_fusion(progs: dict, canvases, card: str) -> None:
         peaks[fuse] = max(peaks[fuse], torch.cuda.max_memory_allocated())
     for fuse, ms in times.items():
         mean = statistics.mean(ms)
-        print(f"  [{card}] b{batch}@{dim} bf16 device-resident, "
-              f"detect.fuse_stem={fuse}: {mean:.3f} ms/batch (medians of 5 "
-              f"in two turns: {', '.join(f'{t:.3f}' for t in ms)}), "
+        kind = ("int8, detect.fuse_stem=" + fuse[5:] if fuse.startswith("int8")
+                else "bf16, detect.fuse_stem=" + fuse)
+        print(f"  [{card}] b{batch}@{dim} {kind} device-resident: {mean:.3f} "
+              f"ms/batch (medians of 5 in two turns: "
+              f"{', '.join(f'{t:.3f}' for t in ms)}), "
               f"{batch / mean * 1e3:.1f} img/s, peak device memory "
-              f"{peaks[fuse] / 2**30:.2f} GiB (both programs' weights "
+              f"{peaks[fuse] / 2**30:.2f} GiB (all programs' weights "
               "resident)", flush=True)
     check(max(times["pallas"]) < min(times["off"]),
           "the fused-stem batch is faster than the unfused one")
-    infer_fn, net = progs["pallas"]
-    profile_batch(lambda: infer_fn(net, canvases), card + ", fused stem")
+    for fuse, label in (("pallas", "fused stem"), ("int8-off", "int8")):
+        if fuse in progs:
+            infer_fn, net = progs[fuse]
+            profile_batch(lambda: infer_fn(net, canvases), f"{card}, {label}")
 
 
 def stem_bound_ms(x: torch.Tensor, stem_layer) -> tuple:
@@ -1128,7 +1179,8 @@ def time_stem(progs: dict, canvases, card: str) -> dict:
             "bound_by": bound_by}
 
 
-def time_eval(argv: list, n_images: int, card: str) -> None:
+def time_eval(argv: list, n_images: int, card: str,
+              program: str = "fused stem") -> None:
     """A second run of the same ``cli.eval`` (plans built): images/s of
     the whole path, host loader and mAP included."""
     torch.cuda.synchronize()
@@ -1137,7 +1189,7 @@ def time_eval(argv: list, n_images: int, card: str) -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     print(f"  [{card}] cli.eval, {n_images} images at batch {EVAL_BATCH}, "
-          f"fused stem: {seconds:.3f} s = {n_images / seconds:.1f} img/s "
+          f"{program}: {seconds:.3f} s = {n_images / seconds:.1f} img/s "
           "(cache load, host decode + letterbox, device, mAP)", flush=True)
 
 
@@ -1191,6 +1243,435 @@ def time_nms(shifted, valid, keep, iou_thresh: float, card: str) -> dict:
             "bound_by": bound_by, **phase_ms}
 
 
+# ---------------------------------------------------------------------------
+# the int8 path
+# ---------------------------------------------------------------------------
+
+
+def requant_cases(device) -> dict:
+    """int8_requant inputs: (acc, m, b, r, qmax, leaky, phases) on
+    ``device``. Wide sums (past 2^24), small sums and zero rows, per-channel
+    scales, biases on the .5 boundaries of y * r and one ulp either side, a
+    ragged row count, and a column slice of a wider product (row stride
+    above the width, as a padded ``_int_mm`` leaves it)."""
+    rng = np.random.RandomState(SEED + 9)
+    cases = {}
+    for label, rows, c, phases, leaky, qmax in (
+            ("C32", 4096, 32, 1, True, 127),
+            ("C64 linear", 4096, 64, 1, False, 127),
+            ("C1024", 1000, 1024, 1, True, 127),
+            ("C32 ragged M", 123457, 32, 1, True, 127),
+            ("stem phases C32", 4099, 32, 4, True, 127),
+            ("C64 5-bit", 777, 64, 1, True, 15)):
+        cols = phases * c
+        acc = np.concatenate([
+            rng.randint(-2 ** 27, 2 ** 27, (rows // 2, cols)),
+            rng.randint(-3000, 3000, (rows - rows // 2 - 5, cols)),
+            np.zeros((5, cols), np.int64)]).astype(np.int32)
+        scale = np.float32(rng.uniform(0.01, 0.1))
+        r = np.float32(1) / scale
+        w_scale = (rng.uniform(0.5, 2, cols) * 1e-3).astype(np.float32)
+        m = np.float32(rng.uniform(0.005, 0.02)) * w_scale
+        b = rng.normal(0, 1, cols).astype(np.float32)
+        k = rng.randint(-qmax, qmax, cols).astype(np.float32)
+        edge = ((k + np.float32(0.5)) / r).astype(np.float32)
+        pick = rng.randint(0, 3, cols)  # on the edge, one ulp up, one down
+        b[::2] = np.where(pick == 0, edge, np.where(
+            pick == 1, np.nextafter(edge, np.float32(np.inf)),
+            np.nextafter(edge, -np.float32(np.inf))))[::2]
+        cases[label] = (torch.from_numpy(acc).to(device),
+                        torch.from_numpy(m).to(device),
+                        torch.from_numpy(b).to(device), float(r), qmax,
+                        leaky, phases)
+    acc, m, b, r, qmax, leaky, phases = cases["C32"]
+    wide = torch.zeros((acc.shape[0], 40), dtype=torch.int32, device=device)
+    wide[:, :32] = acc
+    cases["C32 column slice of a 40-wide product"] = (
+        wide[:, :32], m, b, r, qmax, leaky, phases)
+    return cases
+
+
+def compare_requant(device) -> int:
+    """The requant kernel against its plain version on the card: the codes
+    must be equal. Returns the largest code difference (0)."""
+    worst = 0
+    for label, (acc, m, b, r, qmax, leaky, phases) in requant_cases(
+            device).items():
+        got = int8_requant_cuda(acc, m, b, r, qmax, leaky, phases)
+        want = int8_requant_torch(acc, m, b, r, qmax, leaky, phases)
+        torch.cuda.synchronize()
+        diff = int((got.int() - want.int()).abs().max())
+        worst = max(worst, diff)
+        print(f"  int8_requant {label}: acc {tuple(acc.shape)} -> "
+              f"{tuple(got.shape)}, qmax {qmax}, leaky {leaky}, codes equal "
+              f"{torch.equal(got, want)} ({int((got != want).sum())} differ)",
+              flush=True)
+        check(torch.equal(got, want), f"int8_requant == plain on {label}")
+    acc, m, b, r, qmax, leaky, _ = requant_cases(device)["C32"]
+    for bad, why in (
+        (lambda: int8_requant_cuda(acc.long(), m, b, r, qmax, leaky),
+         "int64 sums"),
+        (lambda: int8_requant_cuda(acc, m[:16], b, r, qmax, leaky),
+         "a short scale vector"),
+        (lambda: int8_requant_cuda(acc, m, b, r, qmax, leaky, 3), "3 phases"),
+        (lambda: int8_requant_cuda(acc.t(), m, b, r, qmax, leaky),
+         "column-major sums"),
+    ):
+        try:
+            bad()
+        except ValueError:
+            continue
+        raise RuntimeError(f"chip_smoke: the requant wrapper accepted {why}")
+    return worst
+
+
+def compare_products(device) -> None:
+    """The int8 product (im2col + ``_int_mm``) on the card against the
+    CPU's exact float64 conv / int64 product: the int32 sums must be
+    equal."""
+    rng = np.random.RandomState(SEED + 10)
+    for label, shape, k, cout, stride in (
+            ("3x3 128->256 @52", (2, 52, 52, 128), 3, 256, 1),
+            ("1x1 512->256 @26", (2, 26, 26, 512), 1, 256, 1),
+            ("conv0 3x3 3->32 @416 (K 27 -> 32)", (2, 416, 416, 3), 3, 32, 1),
+            ("int8 stem 3x3 12->128 @208 (K 108 -> 112)", (2, 208, 208, 12),
+             3, 128, 1),
+            ("v1 7x7/s2 3->64 @448 (pad (3, 2))", (1, 448, 448, 3), 7, 64, 2)):
+        x = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+        w = torch.from_numpy(rng.randint(-127, 128, (k, k, shape[3], cout))
+                             .astype(np.int8))
+        pad_h = _darknet_padding(shape[1], k, stride)
+        pad_w = _darknet_padding(shape[2], k, stride)
+        acc, (n, ho, wo) = int8_conv(x.to(device), w.to(device), stride,
+                                     pad_h, pad_w)
+        got = acc.reshape(n, ho, wo, cout).cpu()
+        want = int8_conv_exact(x, w, stride, pad_h, pad_w)
+        print(f"  int8 product {label}: sums {tuple(got.shape)} equal "
+              f"{torch.equal(got, want)}", flush=True)
+        check(torch.equal(got, want), f"int8 product == exact on {label}")
+    for label, fin, fout in (("v1 dense b1 50176->256", 50176, 256),
+                             ("v1 dense b1 256->4096", 256, 4096)):
+        x = torch.from_numpy(rng.randint(-127, 128, (1, fin)).astype(np.int8))
+        w = torch.from_numpy(rng.randint(-127, 128, (fin, fout))
+                             .astype(np.int8))
+        got = int8_matmul(x.to(device), gemm_operand(w.to(device)), fout).cpu()
+        want = (x.long() @ w.long()).int()
+        print(f"  int8 product {label}: sums {tuple(got.shape)} equal "
+              f"{torch.equal(got, want)}", flush=True)
+        check(torch.equal(got, want), f"int8 product == exact on {label}")
+
+
+def random_folded(model, dim: int, seed: int):
+    """A BN-folded network for ``model`` from ``seed`` with random BN
+    statistics, on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    net = model.init(gen, dim)
+    with torch.no_grad():
+        for layer in net.children():
+            if hasattr(layer, "mean"):
+                layer.mean.normal_(0.0, 0.1, generator=gen)
+                layer.var.uniform_(0.5, 1.5, generator=gen)
+                layer.scale.uniform_(0.5, 1.5, generator=gen)
+                layer.bias.normal_(0.0, 0.1, generator=gen)
+    return fold_bn(model, net)
+
+
+def check_int8_card_vs_cpu(device) -> None:
+    """Small models quantized on the CPU and moved to the card: every
+    layer's int8 codes equal, the bf16 head within INT8_HEAD_RTOL of its
+    max, unfused and with the fused int8 stem."""
+    for label, name, inference, dim in (
+            ("darknet19 v2 @64", "yolo2", "darknet", 64),
+            ("tiny v2 @32", "yolo2", "tiny", 32)):
+        model, net = random_folded(get_model(name, inference, 20), dim,
+                                   SEED + 11)
+        gen = torch.Generator().manual_seed(SEED + 12)
+        calib = torch.rand((4, dim, dim, 3), generator=gen)
+        x = torch.rand((3, dim, dim, 3), generator=gen)
+        qm = ptq.quantize_model(model, net, calib)
+        for stem in (False, True):
+            q = ptq.fuse_stem_int8(qm) if stem else qm
+            cpu_codes, dev_codes = [], []
+            ref = ptq.apply_int8(q, x, codes=cpu_codes)
+            got = ptq.apply_int8(q.to(device), x.to(device),
+                                 codes=dev_codes).cpu()
+            equal = [torch.equal(a, b.cpu()) for a, b in zip(cpu_codes,
+                                                             dev_codes)]
+            err = float((got - ref).abs().max() / ref.abs().max())
+            print(f"  int8 {label}{' fused stem' if stem else ''}, card vs "
+                  f"CPU: {sum(equal)} of {len(cpu_codes)} code tensors equal; "
+                  f"head max err {err:.2e} of max|ref| (limit "
+                  f"{INT8_HEAD_RTOL:g})", flush=True)
+            check(len(dev_codes) == len(cpu_codes) and all(equal),
+                  f"int8 codes on the card == CPU ({label})")
+            check(err <= INT8_HEAD_RTOL, f"int8 head on the card ({label})")
+
+
+def int8_programs(npz: str, canvases) -> dict:
+    """The b128 int8 serving program, calibrated on the batch's first
+    eight canvases, with ``detect.fuse_stem`` off and xla:
+    {"int8-off"/"int8-xla": (infer_fn, qm-bearing net)}."""
+    progs = {}
+    for fuse in ("off", "xla"):
+        cfg = load_config(["config.ini"], ["detect.threshold=0.005",
+                                           "detect.use_int8=1",
+                                           f"detect.fuse_stem={fuse}"])
+        _, _, infer_fn, net, _ = build_serving(cfg, npz, canvases[:8])
+        progs[f"int8-{fuse}"] = (infer_fn, net)
+    return progs
+
+
+def count_launches(fn) -> dict:
+    """Every kernel's launches over ``fn()``: counts set to 0 just before,
+    read just after."""
+    torch.cuda.synchronize()
+    for kern in (nms_greedy_cuda, stem_fused_cuda, int8_requant_cuda):
+        kern.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {"nms_greedy": nms_greedy_cuda.launches,
+            "stem_fused": stem_fused_cuda.launches,
+            "int8_requant": int8_requant_cuda.launches}
+
+
+def check_requant_launches(infer_fn, net, canvases, label: str) -> tuple:
+    """One call of the serving program in which every requant launch is
+    also run through the plain version, on the same sums, scales and bias,
+    in chunks of rows (so its float64 temporaries fit): the codes must be
+    equal. Returns ((rows, channels, phases) of each launch, the plain
+    version's device milliseconds summed over the launches)."""
+    shapes, plain = [], [0.0]
+
+    def checked(acc, m, b, r, qmax, leaky, phases=1):
+        got = int8_requant_cuda(acc, m, b, r, qmax, leaky, phases)
+        rows, cols = acc.shape
+        step = max(PLAIN_CHUNK // cols, 1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = [int8_requant_torch(acc[s:s + step], m, b, r, qmax, leaky,
+                                   phases) for s in range(0, rows, step)]
+        end.record()
+        end.synchronize()
+        plain[0] += start.elapsed_time(end)
+        equal = all(torch.equal(got[s:s + step], w)
+                    for s, w in zip(range(0, rows, step), want))
+        shapes.append((rows, cols // phases, phases))
+        check(equal, f"int8_requant == plain at launch {len(shapes)} of "
+                     f"{label}: acc {tuple(acc.shape)}, {phases} phases")
+        return got
+
+    with mock.patch.object(ptq, "int8_requant_cuda", checked):
+        infer_fn(net, canvases)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  {label}: {len(shapes)} int8_requant launches held against the "
+          f"plain version on their own sums, codes equal in all; (rows, C, "
+          f"phases) {shapes}", flush=True)
+    return shapes, plain[0]
+
+
+def time_int8_requant(progs: dict, canvases, card: str) -> dict:
+    """The requant kernel at the b128 batch's shapes: its device time a
+    batch (the profiler's sum over its launches in the ``fuse_stem=off``
+    serving program), its bound (bytes: each launch's int32 sums read once,
+    its codes written once, its m and b read once, over HBM bandwidth), and
+    its plain version's time on the same sums. Every launch of both int8
+    programs (off and xla, whose stem launch takes the four-phase mode) is
+    held against the plain version on its own inputs."""
+    infer_fn, net = progs["int8-off"]
+    by_name = kernel_device_us(lambda: infer_fn(net, canvases), 3)
+    rows = [(key, us) for key, us in by_name.items()
+            if "int8_requant_kernel" in key]
+    check(bool(rows), "the profile shows int8_requant_kernel")
+    ms = sum(us for _, us in rows) / 1e3
+    tag = f"b{canvases.shape[0]}@{canvases.shape[1]}"
+    shapes, plain = check_requant_launches(infer_fn, net, canvases,
+                                           f"{tag} int8-off")
+    stem_shapes, _ = check_requant_launches(*progs["int8-xla"], canvases,
+                                            f"{tag} int8-xla")
+    check(stem_shapes[0][2] == 4, "the int8-xla program's stem launch")
+    nbytes = sum(r * p * c * 4 + r * c + 2 * p * c * 4 for r, c, p in shapes)
+    ops = sum(r * p * c * REQUANT_OPS for r, c, p in shapes)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"  [{card}] int8_requant at {tag}: {len(shapes)} launches a "
+          f"batch, kernel {ms:.3f} ms on the device a batch, bound "
+          f"{bound_ms:.3f} ms ({bound_by}: {nbytes} B, {ops} f32 ops), plain "
+          f"version {plain:.3f} ms on the same sums, library none",
+          flush=True)
+    for key, us in rows:
+        print(f"    {us / 1e3:8.3f} ms  {key[:90]}", flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def write_ppms(images: list, root: str) -> list:
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i, img in enumerate(images):
+        paths.append(os.path.join(root, f"int8_{i}.ppm"))
+        write_ppm(paths[-1], img)
+    return paths
+
+
+def drive_int8_cli(npz: str, tmp: str, ev: dict, device,
+                   overrides=()) -> dict:
+    """The int8 path as a user drives it: ``cli.detect --image`` on the
+    four images, ``cli.detect --stdin`` with ``detect.calib_images=2`` on
+    three paths and an unreadable one, and ``cli.eval`` on the eval set,
+    each with ``detect.use_int8=1``. Counts each run's kernel launches and
+    returns them with the eval argv."""
+    paths = write_ppms(synthetic_images(np.random.RandomState(SEED)),
+                       os.path.join(tmp, "int8_images"))
+    int8 = ["detect.use_int8=1", "detect.threshold=0.005", *overrides]
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    launches = {}
+    argv = ["-c", "config.ini", "--weights", npz, *cpu, *int8]
+    for p in paths:
+        argv += ["--image", p]
+    printed = {}
+
+    def detect_images():
+        printed["detect"] = run_cli(detect_cli, argv)[1]
+
+    launches["int8_detect"] = count_launches(detect_images)
+    lines = printed["detect"].splitlines()
+    print(f"phase int8 path: cli.detect --image x{len(paths)} "
+          f"detect.use_int8=1: {len(lines)} detections; launches "
+          f"{launches['int8_detect']}", flush=True)
+    check(len(lines) > 0 and all(line.split(":")[0] in
+                                 {os.path.basename(p) for p in paths}
+                                 for line in lines), "int8 detect lines")
+
+    stream = [paths[0], os.path.join(tmp, "missing.ppm"), paths[1], paths[2]]
+    saved = sys.stdin
+
+    def detect_stream():
+        sys.stdin = io.StringIO("\n".join(stream) + "\n")
+        try:
+            printed["stdin"] = run_cli(detect_cli, [
+                "-c", "config.ini", "--weights", npz, "--stdin", *cpu, *int8,
+                "detect.calib_images=2"])[1]
+        finally:
+            sys.stdin = saved
+
+    with log_lines("detect") as warned:
+        launches["int8_stdin"] = count_launches(detect_stream)
+    blocks = printed["stdin"].split("\n\n")[:-1]
+    order = [b.splitlines()[0].split(":")[0] if b else "" for b in blocks]
+    print(f"  cli.detect --stdin detect.use_int8=1 detect.calib_images=2: "
+          f"blocks in order {order}; launches {launches['int8_stdin']}",
+          flush=True)
+    check(order == [os.path.basename(p) for p in stream],
+          "--stdin answers in input order")
+    check(blocks[1] == "missing.ppm: ERROR unreadable", "the error block")
+    check(any("buffers the first 2 frames" in w for w in warned),
+          "the buffering warning")
+
+    eval_argv_int8 = eval_argv(npz, ev["cache_dir"], device,
+                               ["detect.use_int8=1", *overrides])
+    result = {}
+
+    def run_eval():
+        result["metrics"] = run_cli(eval_cli, eval_argv_int8)[0]
+
+    t0 = time.perf_counter()
+    launches["int8_eval"] = count_launches(run_eval)
+    seconds = time.perf_counter() - t0
+    metrics = result["metrics"]
+    print(f"  cli.eval detect.use_int8=1: {metrics['num_images']} images, "
+          f"{metrics['num_detections']} detections, mAP {metrics['map']:.4f} "
+          f"in {seconds:.2f} s (first run: calibration, plans); launches "
+          f"{launches['int8_eval']}", flush=True)
+    check(metrics["num_images"] == ev["metrics"]["num_images"] and
+          np.isfinite(metrics["map"]), "int8 cli.eval metrics")
+    return {"launches": launches, "eval_argv": eval_argv_int8}
+
+
+def write_overfit_cache(root: str) -> str:
+    """The overfit set as PPM images in a COCO layout, cached: returns the
+    cache directory."""
+    imgs, boxes, classes, valid = overfit_set()
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    images, anns = [], []
+    n, dim = imgs.shape[0], imgs.shape[1]
+    for i in range(n):
+        write_ppm(os.path.join(img_dir, f"{i:06d}.ppm"),
+                  np.round(imgs[i] * 255).astype(np.uint8))
+        images.append({"id": i + 1, "file_name": f"{i:06d}.ppm",
+                       "width": dim, "height": dim})
+        for g in np.nonzero(valid[i])[0]:
+            cx, cy, w, h = boxes[i, g] * dim
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(classes[i, g]) + 1,
+                         "bbox": [float(cx - w / 2), float(cy - h / 2),
+                                  float(w), float(h)], "iscrowd": 0})
+    ann = os.path.join(root, "instances.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "red"},
+                                  {"id": 2, "name": "blue"}]}, f)
+    cache_dir = os.path.join(root, "cache")
+    build_cache(cache_dir, "test", [{"kind": "coco", "ann_json": ann,
+                                     "image_dir": img_dir}],
+                names=("red", "blue"))
+    return cache_dir
+
+
+def top_detections(dump: str) -> dict:
+    """image id -> (class, score, corner box) of its best detection in an
+    ``evaluate_model`` dump."""
+    with open(dump) as f:
+        dets = json.load(f)["detections"]
+    best = {}
+    for d in dets:
+        if d["image_id"] not in best or d["score"] > best[d["image_id"]][1]:
+            x, y, w, h = d["bbox"]
+            best[d["image_id"]] = (d["category_id"], d["score"],
+                                   np.array([x, y, x + w, y + h]))
+    return best
+
+
+def check_int8_map(model, net, tmp: str, device) -> tuple:
+    """The trained overfit model evaluated in f32 and in int8 (calibrated on
+    its eight images) on its own set: the int8 mAP@0.5 within INT8_MAP_TOL
+    of the f32 one. mAP@0.5 saturates on this set, so COCO's AP@0.75 and
+    AP@[.5:.95] and each image's best detection (class, score, IoU between
+    the two) are printed beside it."""
+    cache = load_cache(write_overfit_cache(os.path.join(tmp, "overfit")),
+                       "test")
+    kw = dict(input_dim=48, batch_size=8, top_k=64, device=device,
+              compute_dtype=torch.float32, coco=True)
+    dumps = [os.path.join(tmp, f"overfit_{k}.json") for k in ("f32", "int8")]
+    f32 = evaluate_model(model, net, cache, dump_path=dumps[0], **kw)
+    int8 = evaluate_model(model, net, cache, int8=True, calib_images=8,
+                          dump_path=dumps[1], **kw)
+    print(f"  overfit model on its 8 images, f32 / int8: mAP@0.5 "
+          f"{f32['map']:.4f} / {int8['map']:.4f} (|delta| "
+          f"{abs(int8['map'] - f32['map']):.4f}, limit {INT8_MAP_TOL}); "
+          f"AP@0.75 {f32['ap75']:.4f} / {int8['ap75']:.4f}; AP@[.5:.95] "
+          f"{f32['coco_map']:.4f} / {int8['coco_map']:.4f}", flush=True)
+    top_f32, top_int8 = (top_detections(d) for d in dumps)
+    same_class, score_diff, ious = 0, 0.0, []
+    for img, (cls, score, box) in top_f32.items():
+        cls8, score8, box8 = top_int8.get(img, (None, 0.0, np.zeros(4)))
+        same_class += cls == cls8
+        score_diff = max(score_diff, abs(score - score8))
+        ious.append(float(iou_matrix(torch.from_numpy(box[None]),
+                                     torch.from_numpy(box8[None]))))
+    print(f"  best detection of each image, int8 vs f32: class equal on "
+          f"{same_class} of {len(top_f32)}, max |score delta| "
+          f"{score_diff:.4f}, IoU min {min(ious):.4f} mean "
+          f"{np.mean(ious):.4f}", flush=True)
+    check(abs(int8["map"] - f32["map"]) <= INT8_MAP_TOL,
+          "int8 mAP within the limit of the f32 mAP")
+    return f32["map"], int8["map"]
+
+
 def main() -> int:
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
@@ -1206,6 +1687,8 @@ def main() -> int:
     cfg = load_config(["config.ini"], ["detect.threshold=0.005"])
     print("phase kernels vs plain:", flush=True)
     nms_err = compare_kernels(device, cfg.detect.nms_iou)
+    requant_err = compare_requant(device)
+    compare_products(device)
 
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "darknet19_seed0.npz")
@@ -1230,31 +1713,58 @@ def main() -> int:
               == batches, "the eval path launched each kernel once a batch")
         check_fused_head(cfg, npz, ev["cache_dir"], device)
 
+        check_int8_card_vs_cpu(device)
+        i8 = drive_int8_cli(npz, tmp, ev, device)
+        # the int8 convs: every conv but the bf16 head
+        n_int8 = sum(isinstance(s, ConvSpec)
+                     for s in cfg.build_model().specs) - 1
+        for path, images in (("int8_detect", 1), ("int8_stdin", 3),
+                             ("int8_eval", batches)):
+            got = i8["launches"][path]
+            check(got["int8_requant"] == n_int8 * images
+                  and got["nms_greedy"] == images and got["stem_fused"] == 0,
+                  f"{path}: int8_requant {n_int8} and nms_greedy once a batch")
+
         tr = drive_train_path(tmp, device, EVAL_IMAGES)
         check(tr["launches"]["stem_fused"] == tr["launches"]["nms_greedy"]
               == batches, "the in-training eval launched each kernel once "
                           "a batch")
         check_checkpoint_as_weights(tr, device)
         check_train_card_vs_cpu(device)
-        check_overfit(device)
+        _, _, om, onet = check_overfit(device)
+        check_int8_map(om, onet, tmp, device)
 
         print(f"phase times [{card}]:", flush=True)
         time_path(cfg, npz, model, run, card)
+        progs.update(int8_programs(npz, run["canvases"]))
+        for fuse in ("int8-off", "int8-xla"):
+            infer_fn, net = progs[fuse]
+            got = count_launches(lambda: infer_fn(net, run["canvases"]))
+            print(f"  b{BATCH} {fuse} batch launches {got}", flush=True)
+            check(got == {"nms_greedy": 1, "stem_fused": 0,
+                          "int8_requant": n_int8},
+                  f"{fuse}: one NMS and {n_int8} requant launches a batch")
         time_fusion(progs, run["canvases"], card)
         stem_times = time_stem(progs, run["canvases"], card)
         nms_times = time_nms(shifted, valid, keep, cfg.detect.nms_iou, card)
+        requant_times = time_int8_requant(progs, run["canvases"], card)
         time_eval(ev["argv"], EVAL_IMAGES, card)
+        time_eval(i8["eval_argv"], EVAL_IMAGES, card,
+                  "int8 trunk (no stem fusion; calibrates each run)")
         ips = tr["images_per_sec"]
         print(f"  [{card}] cli.train images_per_sec, steps 1-{len(ips)}: "
               f"{', '.join(f'{v:.1f}' for v in ips)} (median of steps 2-"
               f"{len(ips)}: {statistics.median(ips[1:]):.1f})", flush=True)
         time_train_step(load_config(["config.ini"]), device, card)
 
-    # launches: the eval path's run; launches_by_path: each path's own run
+    # launches: the eval path's run (the int8 kernel: the int8 detect run);
+    # launches_by_path: each path's own run
     by_path = {name: {"serving": serving, "eval": ev["launches"][name],
-                      "train": tr["launches"][name]}
+                      "train": tr["launches"][name],
+                      **{p: i8["launches"][p][name] for p in INT8_PATHS}}
                for name, serving in (("nms_greedy", run["launches"]),
-                                     ("stem_fused", run["stem_launches"]))}
+                                     ("stem_fused", run["stem_launches"]),
+                                     ("int8_requant", run["int8_launches"]))}
     print(json.dumps({"kernels": [{
         "name": "nms_greedy",
         "route": "cuda",
@@ -1278,6 +1788,16 @@ def main() -> int:
         **stem_times,
         "library_ms": None,
         "redesigned": "PR 3",
+    }, {
+        "name": "int8_requant",
+        "route": "cuda",
+        "source": "yolojax_torch/csrc/int8_requant.cu",
+        "replaces": "XLA epilogue fusion in yolojax/quantize/ptq.py:363",
+        "launches": i8["launches"]["int8_detect"]["int8_requant"],
+        "launches_by_path": by_path["int8_requant"],
+        "max_abs_err": requant_err,
+        **requant_times,
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """The port's detect CLI: ``python -m yolojax_torch.cli.detect`` end to end
-on the CPU with jax blocked, and the settings it does not port yet (or
-that do not apply to the weights given), which raise instead of being
-ignored."""
+on the CPU with jax blocked, the settings it does not port yet (or that do
+not apply to the weights given), which raise instead of being ignored, and
+the int8 and ``--stdin`` paths, which once raised and now run."""
 
+import io
 import os
 import subprocess
 import sys
@@ -62,17 +63,35 @@ def test_detect_module_entry_point(tiny_setup):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    (["detect.use_int8=1"], NotImplementedError, "detect.use_int8"),
+    # the int8 trunk, calibrated on the given canvas: the path runs
+    (["detect.use_int8=1"], None, None),
     # EMA weights live in training checkpoints, never in a weights file
     (["detect.use_ema=1"], ValueError, "use_ema needs a checkpoint dir"),
     (["detect.use_int8=1", "detect.fuse_stem=xla"],  # the int8 fused stem
-     NotImplementedError, "detect.use_int8"),
+     None, None),
 ], ids=["detect.use_int8=1", "detect.use_ema=1", "detect.fuse_stem=xla"])
 def test_unported_detect_settings_raise(tiny_setup, overrides, error, match):
+    """Each case of a setting the detect CLI once refused: ``use_ema`` on
+    a weights file still raises, and the int8 cases (``error`` None) now
+    build, serve and must not raise; the test keeps its name so each case
+    keeps its identity. Their parity with yolojax is in
+    tests/test_torch_int8_serving.py."""
     ini, npz, _ = tiny_setup
     cfg = load_config([ini], overrides)
-    with pytest.raises(error, match=match):
-        detect.build_detector(cfg, npz, device="cpu")
+    if error is not None:
+        with pytest.raises(error, match=match):
+            detect.build_detector(cfg, npz, device="cpu")
+        return
+    x = np.random.RandomState(6).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    out = detect.build_detector(cfg, npz, list(x[:1]), device="cpu")[2](x)
+    assert out["keep"].shape == (2, cfg.detect.top_k)
+    assert np.isfinite(out["scores"]).all() and out["keep"].any()
+    if "detect.fuse_stem=xla" in overrides:  # the int8 stem is bit-exact
+        cfg = load_config([ini], ["detect.use_int8=1"])
+        ref = detect.build_detector(cfg, npz, list(x[:1]), device="cpu")[2](x)
+        for key in ref:
+            np.testing.assert_array_equal(out[key], ref[key])
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas", "auto"])
@@ -97,8 +116,28 @@ def test_detect_fuse_stem(tiny_setup, impl):
 
 @pytest.mark.parametrize("flag", [["--artifact", "m.yjsa"], ["--stdin"],
                                   ["--data-parallel"]])
-def test_unported_detect_flags_raise(tiny_setup, monkeypatch, flag):
-    ini, npz, _ = tiny_setup
+def test_unported_detect_flags_raise(tiny_setup, monkeypatch, capsys, flag):
+    """Each case of a flag the detect CLI once refused: --artifact and
+    --data-parallel are not ported and raise; --stdin runs and must serve
+    the paths it reads, answering an unreadable one in order (the test
+    keeps its name so each case keeps its identity)."""
+    import cv2
+
+    ini, npz, tmp = tiny_setup
+    if flag == ["--stdin"]:
+        img = str(tmp / "s.png")
+        cv2.imwrite(img, np.random.RandomState(7).randint(
+            0, 256, (50, 70, 3), np.uint8))
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            f"{img}\n{tmp / 'missing.png'}\n"))
+        monkeypatch.setattr(sys, "argv", ["detect", "-c", ini, "--weights",
+                                          npz, "--device", "cpu", *flag])
+        detect.main()
+        blocks = capsys.readouterr().out.split("\n\n")
+        assert blocks[0] and all(line.startswith("s.png: ")
+                                 for line in blocks[0].splitlines())
+        assert blocks[1] == "missing.png: ERROR unreadable"
+        return
     monkeypatch.setattr(sys, "argv", ["detect", "-c", ini, "--weights", npz,
                                       "--image", "a.png", *flag])
     with pytest.raises(NotImplementedError, match=flag[0]):

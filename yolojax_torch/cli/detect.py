@@ -7,20 +7,24 @@ Port of ``cli/detect.py``. Usage:
 
   python -m yolojax_torch.cli.detect -c config.ini --weights W.npz \
       --image IMG [--image IMG2 ...] [--out OUT] [--device cpu]
+  ... --weights W.npz --stdin [--out DIR]   # serve: one image path per
+                                            # line, weights loaded once
 
 ``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
 directory (``detect.use_ema=1``: its EMA weights). ``detect.fuse_stem`` =
 ``pallas`` or ``auto`` runs conv0 + pool 1 as the CUDA stem kernel (its
-plain version on the CPU), ``xla`` as the packed conv in PyTorch. Not
-ported yet (they raise NotImplementedError): ``--artifact``, ``--stdin``,
-``--data-parallel`` and ``detect.use_int8`` (with or without the fused
-stem).
+plain version on the CPU), ``xla`` as the packed conv in PyTorch.
+``detect.use_int8=1`` runs the int8 trunk (``quantize/ptq.py``), calibrated
+on the first ``detect.calib_images`` inputs; with ``detect.fuse_stem`` not
+off its conv0 + pool 1 is the packed int8 stem. Not ported yet (they raise
+NotImplementedError): ``--artifact`` and ``--data-parallel``.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import sys
 import time
 from typing import Optional, Sequence, Union
 
@@ -32,6 +36,7 @@ from yolojax_torch.data.augment import letterbox_host
 from yolojax_torch.data.loader import decode_image
 from yolojax_torch.eval.evaluator import make_infer_fn, serving_weights
 from yolojax_torch.nn.stem import fuse_stem
+from yolojax_torch.quantize.ptq import fuse_stem_int8, quantize_model
 from yolojax_torch.utils.cli import make_parser, setup
 from yolojax_torch.utils.device import resolve_device
 from yolojax_torch.utils.restore import load_weights
@@ -39,42 +44,66 @@ from yolojax_torch.utils.restore import load_weights
 log = logging.getLogger("detect")
 
 
-def _check_ported(cfg) -> None:
-    if cfg.detect.use_int8:
-        raise NotImplementedError("detect.use_int8: the int8 trunk is not "
-                                  "ported yet (ROADMAP queue 1, int8)")
+# the int8 fallback calibration batch when no input canvases are given
+SYNTHETIC_CALIB_SEED, SYNTHETIC_CALIB_IMAGES = 9, 8
 
 
-def build_serving(cfg, weights_path: str, *, device=None):
-    """Load weights, fold BN, fuse the stem (``detect.fuse_stem``) and bind
-    the serving program. Returns
+def build_serving(cfg, weights_path: str, calib_canvases=None, *,
+                  device=None):
+    """Load weights, fold BN, then either fuse the stem
+    (``detect.fuse_stem``) or, with ``detect.use_int8``, quantize the trunk
+    on ``calib_canvases`` (letterboxed input canvases; a seeded synthetic
+    batch, with a warning, when there are none) and fuse the int8 stem when
+    ``detect.fuse_stem`` is not off. Bind the serving program. Returns
     (names, dim, infer_fn(net, images), net, device): bf16 convs on the
-    card, f32 on the CPU."""
-    _check_ported(cfg)
+    card, f32 on the CPU; the int8 program reads no ``net``."""
     device = resolve_device(device)
     model = cfg.build_model()
     names = cfg.names()
     dim = cfg.model.dim
     net = load_weights(weights_path, model, use_ema=cfg.detect.use_ema)
     model, net = fold_bn(model, net, eps=cfg.model.bn_eps)
-    model, net = fuse_stem(model, net, impl=cfg.detect.fuse_stem)
     compute = torch.float32 if device.type == "cpu" else torch.bfloat16
-    net = serving_weights(net, device, compute)
+    qm = None
+    if cfg.detect.use_int8:
+        if calib_canvases is not None and len(calib_canvases):
+            calib = torch.stack([torch.as_tensor(c) for c in calib_canvases])
+            log.info("int8 conv trunk enabled (calibrated on %d input images, "
+                     "percentile %.4g)", len(calib_canvases),
+                     cfg.detect.calib_percentile)
+        else:
+            calib = torch.rand(
+                (SYNTHETIC_CALIB_IMAGES, dim, dim, 3),
+                generator=torch.Generator().manual_seed(SYNTHETIC_CALIB_SEED))
+            log.warning("int8 calibration falling back to synthetic inputs")
+        net = net.to(device).requires_grad_(False).eval()
+        qm = quantize_model(model, net,
+                            calib.to(device, torch.float32).contiguous(),
+                            percentile=cfg.detect.calib_percentile,
+                            bits=cfg.detect.quant_bits)
+        if cfg.detect.fuse_stem != "off":
+            # bit-exact phase-packed conv0 + pool, opt-in like the bf16 stem
+            qm = fuse_stem_int8(qm)
+    else:
+        model, net = fuse_stem(model, net, impl=cfg.detect.fuse_stem)
+        net = serving_weights(net, device, compute)
     infer_fn = make_infer_fn(
         model, score_thresh=cfg.detect.threshold,
         iou_thresh=cfg.detect.nms_iou, top_k=cfg.detect.top_k,
         use_pallas=cfg.detect.use_pallas, candidates=cfg.detect.candidates,
-        compute_dtype=compute,
+        compute_dtype=compute, qm=qm,
     )
     return names, dim, infer_fn, net, device
 
 
-def build_detector(cfg, weights_path: str, device=None):
+def build_detector(cfg, weights_path: str, calib_canvases=None, device=None):
     """Load weights and bind the serving program once. Returns
     (names, dim, infer(canvases) -> dict of numpy arrays). ``canvases``
-    is an (N, dim, dim, 3) float batch, numpy or a tensor on any device."""
-    names, dim, infer_fn, net, device = build_serving(cfg, weights_path,
-                                                      device=device)
+    is an (N, dim, dim, 3) float batch, numpy or a tensor on any device.
+    ``calib_canvases``: int8 calibration canvases (see
+    :func:`build_serving`)."""
+    names, dim, infer_fn, net, device = build_serving(
+        cfg, weights_path, calib_canvases, device=device)
 
     def infer(canvases):
         x = torch.as_tensor(canvases).to(device, torch.float32).contiguous()
@@ -84,11 +113,85 @@ def build_detector(cfg, weights_path: str, device=None):
     return names, dim, infer
 
 
-def _read_rgb(path: str) -> np.ndarray:
+class LazyDetector:
+    """Deferred detector build for the stream (``--stdin``): buffers the
+    first ``detect.calib_images`` readable frames so int8 activation scales
+    calibrate on real inputs, then builds once and drains the queue in
+    arrival order. Frameless responses (unreadable-path errors) queue
+    behind buffered frames so output order always matches input order;
+    they emit at once when nothing is buffered.
+
+    ``process(item)`` is the per-frame callback; it reads ``self.infer``
+    and ``self.names`` (bound by :meth:`flush`)."""
+
+    def __init__(self, cfg, weights_path: str, process, device=None):
+        self._cfg = cfg
+        self._weights = weights_path
+        self._process = process
+        self._device = device
+        self._pending = []  # ("frame", canvas, item) | ("call", fn)
+        self.calib_target = (max(cfg.detect.calib_images, 1)
+                             if cfg.detect.use_int8 else 1)
+        self.names = None
+        self.dim = cfg.model.dim
+        self.infer = None
+
+    @property
+    def pending_frames(self) -> int:
+        return sum(e[0] == "frame" for e in self._pending)
+
+    def add_frame(self, canvas, item) -> None:
+        if self.infer is None:
+            self._pending.append(("frame", canvas, item))
+            if self.pending_frames >= self.calib_target:
+                self.flush()
+        else:
+            self._process(item)
+
+    def defer(self, fn) -> None:
+        if self.infer is None and self.pending_frames:
+            self._pending.append(("call", fn))
+        else:
+            fn()
+
+    def flush(self) -> None:
+        """Build on whatever frames arrived (short streams calibrate on
+        fewer than calib_target) and drain the queue in order."""
+        if not self._pending:
+            return
+        if self.infer is None:
+            canvases = [e[1] for e in self._pending if e[0] == "frame"]
+            self.names, self.dim, self.infer = build_detector(
+                self._cfg, self._weights,
+                canvases if self._cfg.detect.use_int8 else None,
+                device=self._device)
+        for entry in self._pending:
+            if entry[0] == "frame":
+                self._process(entry[2])
+            else:
+                entry[1]()
+        self._pending.clear()
+
+
+def _decode(path: str) -> Optional[np.ndarray]:
+    """RGB uint8 HWC, or None when the file cannot be opened or decoded."""
     try:
         return decode_image(path)
-    except FileNotFoundError:
+    except OSError:
+        return None
+
+
+def _read_rgb(path: str) -> np.ndarray:
+    raw = _decode(path)
+    if raw is None:
         raise SystemExit(f"unreadable image: {path}")
+    return raw
+
+
+def _raw_and_label(image: Union[str, np.ndarray], index: int):
+    if isinstance(image, str):
+        return _read_rgb(image), os.path.basename(image)
+    return np.asarray(image), f"image{index}"
 
 
 def _extract(out, k, tf, raw_shape, names):
@@ -127,9 +230,18 @@ def run_detect(cfg, weights_path: str,
     formats with cv2) or decoded HWC RGB arrays. Prints one
     ``label: name score [x0, y0, x1, y1]`` line per detection and returns
     [(label, raw, dets)]. ``detector`` reuses a :func:`build_detector`
-    result."""
-    names, dim, infer = detector or build_detector(cfg, weights_path,
-                                                   device=device)
+    result. With ``detect.use_int8`` a new detector calibrates on the first
+    ``detect.calib_images`` inputs, letterboxed as the forward sees them."""
+    if detector is None:
+        calib = None
+        if cfg.detect.use_int8:
+            calib = [letterbox_host(_raw_and_label(image, j)[0],
+                                    cfg.model.dim,
+                                    stretch=cfg.detect.stretch)[0]
+                     for j, image in enumerate(
+                         images[:max(cfg.detect.calib_images, 1)])]
+        detector = build_detector(cfg, weights_path, calib, device=device)
+    names, dim, infer = detector
     # one compiled batch shape in yolojax; here a fixed batch keeps the
     # cuDNN plans warm across groups
     batch = 1 if len(images) == 1 else min(max(cfg.eval.batch_size, 1), 32)
@@ -138,10 +250,7 @@ def run_detect(cfg, weights_path: str,
         group = images[start: start + batch]
         raws, labels, canvases, tfs = [], [], [], []
         for j, image in enumerate(group):
-            if isinstance(image, str):
-                raw, label = _read_rgb(image), os.path.basename(image)
-            else:
-                raw, label = np.asarray(image), f"image{start + j}"
+            raw, label = _raw_and_label(image, start + j)
             canvas, tf = letterbox_host(raw, dim, stretch=cfg.detect.stretch)
             raws.append(raw)
             labels.append(label)
@@ -182,6 +291,70 @@ def run_detect(cfg, weights_path: str,
     return results
 
 
+def run_stream(cfg, weights_path: str, out_dir: Optional[str] = None,
+               lines=None, device=None) -> int:
+    """Serve detections over a stream of image paths (one per line, from
+    ``lines`` or stdin). Weights load and the program is bound once; each
+    image then pays only its decode, letterbox and device time. Prints the
+    ``name: label score [x0, y0, x1, y1]`` lines of each image followed by
+    a blank line, and ``name: ERROR unreadable`` (and a blank line) for a
+    path that does not decode, in input order; with ``out_dir``, writes
+    each annotated image there. Returns the count of images served."""
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    if lines is None:
+        lines = sys.stdin
+    n = 0
+
+    def process(item):
+        nonlocal n
+        image_path, raw, canvas, tf = item
+        out = det.infer(canvas[None])
+        dets = _extract(out, 0, tf, raw.shape, det.names)
+        for name, _, score, (x0, y0, x1, y1) in dets:
+            print(f"{os.path.basename(image_path)}: {name} "
+                  f"{score:.3f} [{x0:.0f}, {y0:.0f}, {x1:.0f}, {y1:.0f}]")
+        print(flush=True)  # blank line = end of this image's block
+        if out_dir:
+            import cv2
+
+            # index prefix: inputs sharing a basename must not overwrite
+            stem = os.path.splitext(os.path.basename(image_path))[0]
+            dst = os.path.join(out_dir, f"{n:06d}_{stem}.png")
+            if not cv2.imwrite(dst, _annotate(raw, dets)):
+                log.error("failed to write %s", dst)
+        n += 1
+
+    def emit_error(image_path):
+        print(f"{os.path.basename(image_path)}: ERROR unreadable")
+        print(flush=True)
+
+    det = LazyDetector(cfg, weights_path, process, device=device)
+    if det.calib_target > 1:
+        # nothing prints until N paths arrive (or the stream closes): a
+        # request/response client that waits for each block would hang
+        log.warning(
+            "int8 serving buffers the first %d frames for activation "
+            "calibration before responding; set detect.calib_images=1 "
+            "for interactive one-request-at-a-time clients",
+            det.calib_target)
+    for line in lines:
+        image_path = line.strip()
+        if not image_path:
+            continue
+        raw = _decode(image_path)
+        if raw is None:
+            # queued behind any buffered frames: response order must
+            # match input order even while calibration is buffering
+            det.defer(lambda p=image_path: emit_error(p))
+            continue
+        canvas, tf = letterbox_host(raw, det.dim, stretch=cfg.detect.stretch)
+        det.add_frame(canvas, (image_path, raw, canvas, tf))
+    det.flush()  # short stream: calibrate on what arrived
+    log.info("stream done: %d images", n)
+    return n
+
+
 def main():
     parser = make_parser(__doc__)
     parser.add_argument("--weights", default="",
@@ -194,22 +367,29 @@ def main():
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
     parser.add_argument("--artifact", default="", help="not ported yet")
-    parser.add_argument("--stdin", action="store_true", help="not ported yet")
+    parser.add_argument("--stdin", action="store_true",
+                        help="serve: read image paths from stdin, one per "
+                             "line; weights are loaded once")
     parser.add_argument("--data-parallel", action="store_true",
                         help="not ported yet")
     args = parser.parse_args()
     cfg = setup(args)
-    for flag, on in (("--artifact", args.artifact), ("--stdin", args.stdin),
+    for flag, on in (("--artifact", args.artifact),
                      ("--data-parallel", args.data_parallel)):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1, config and CLIs)")
+    if args.stdin and (args.image or args.show):
+        parser.error("--stdin is exclusive with --image/--show")
     if not args.weights:
         parser.error("--weights is required")
-    if not args.image:
-        parser.error("--image is required")
-    run_detect(cfg, args.weights, args.image, args.out or None, args.show,
-               device=args.device)
+    if args.stdin:
+        run_stream(cfg, args.weights, args.out or None, device=args.device)
+    elif args.image:
+        run_detect(cfg, args.weights, args.image, args.out or None,
+                   args.show, device=args.device)
+    else:
+        parser.error("one of --image or --stdin is required")
 
 
 if __name__ == "__main__":

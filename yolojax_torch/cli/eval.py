@@ -12,9 +12,11 @@ Usage:
 ``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
 directory (``detect.use_ema=1``: its EMA weights).
 ``detect.fuse_stem=pallas`` (or ``auto``) runs conv0 + pool 1 as the CUDA
-stem kernel. Convs run in f32 on the CPU and in bf16 on the card. Not
-ported yet (they raise NotImplementedError): ``--artifact``,
-``detect.use_int8``, ``eval.data_parallel=on`` and ``eval.distributed=1``.
+stem kernel. Convs run in f32 on the CPU and in bf16 on the card.
+``detect.use_int8=1`` runs the int8 trunk, calibrated on the phase's first
+``detect.calib_images`` images (``detect.calib_percentile``,
+``detect.quant_bits``). Not ported yet (they raise NotImplementedError):
+``--artifact``, ``eval.data_parallel=on`` and ``eval.distributed=1``.
 """
 
 from __future__ import annotations
@@ -75,6 +77,9 @@ def main():
         class_names=names,
         device=args.device,
         int8=cfg.detect.use_int8,
+        calib_images=cfg.detect.calib_images,
+        calib_percentile=cfg.detect.calib_percentile,
+        quant_bits=cfg.detect.quant_bits,
         data_parallel=cfg.eval.data_parallel_flag(),
         distributed=cfg.eval.distributed,
     )

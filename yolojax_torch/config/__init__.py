@@ -103,7 +103,7 @@ class DetectConfig:
     use_pallas: str = "auto"       # auto|always: CUDA kernel; never: plain
     candidates: str = "auto"       # top-k select: auto|exact|approx (exact)
     stretch: bool = False          # plain resize instead of letterbox
-    use_int8: bool = False         # int8 conv trunk (not ported yet)
+    use_int8: bool = False         # int8 PTQ conv trunk (quantize/ptq.py)
     use_ema: bool = False          # checkpoint dirs: the EMA weights
     calib_images: int = 8          # int8: images used for activation calib
     calib_percentile: float = 100.0  # int8: |act| percentile for scales

@@ -15,6 +15,9 @@ carries nothing.
 params, BN state and the optax state of any optimizer ``make_optimizer``
 builds) into the port's train state, so a run started in yolojax resumes in
 the port; :func:`train_state_to_jax` goes back to yolojax's layouts.
+:func:`quantized_from_jax` carries a yolojax int8 ``QuantizedModel``
+(scales, codes and the bf16 head) into the port's, so both packages run
+from identical scales.
 """
 
 from __future__ import annotations
@@ -195,3 +198,41 @@ def train_state_to_jax(model, ts) -> Dict[str, Any]:
            for key, v in ts.opt_state.items()}
     return {"step": ts.step, "params": params, "bn_state": bn_state,
             "opt_state": opt}
+
+
+# ---------------------------------------------------------------------------
+# int8 quantized model
+# ---------------------------------------------------------------------------
+
+
+def quantized_from_jax(model, qm):
+    """A yolojax ``QuantizedModel`` (numpy or jax arrays) -> the port's
+    :class:`~yolojax_torch.quantize.ptq.QuantizedModel` on the CPU.
+    ``model`` is the port's BN-folded model with yolojax's ``qm.model``
+    specs; when ``qm`` carries the fused int8 stem (``conv_0`` holds
+    ``wp_q``), the stem's specs replace the first two, as
+    ``fuse_stem_int8`` places them. int8 kernels keep their layouts (HWIO,
+    whose row-major flattening is the port's GEMM B, and (in, out)); the
+    bf16 head's kernel goes to the port's (OIHW, or (out, in))."""
+    import dataclasses
+
+    from yolojax_torch.nn.stem import NoOpSpec
+    from yolojax_torch.quantize.ptq import QuantizedModel
+
+    qparams = {}
+    for name, lp in qm.qparams.items():
+        out = {k: _tensor(v) for k, v in lp.items()}
+        if "w" in out:  # the head, kept in bf16
+            w = out["w"]
+            out["w"] = (w.permute(3, 2, 0, 1) if w.dim() == 4 else w.T
+                        ).contiguous()
+        qparams[name] = out
+    if "wp_q" in qparams.get("conv_0", {}):
+        c0 = model.specs[0]
+        model = dataclasses.replace(model, specs=(
+            StemSpec(out=c0.out, impl="xla"), NoOpSpec()) + tuple(
+                model.specs[2:]))
+    return QuantizedModel(model, qparams,
+                          tuple(float(s) for s in qm.act_scales),
+                          float(qm.input_scale), int(qm.head_index),
+                          int(qm.qmax))

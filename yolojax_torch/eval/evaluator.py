@@ -5,9 +5,10 @@ Port of ``yolojax/eval/evaluator.py`` for one process on one device. Per
 batch: the host loader's canvases go to the device, the serving program
 runs there (the fused-stem and NMS kernels on the card), and only the
 fixed-shape outputs come back; the host un-pads them into detection lists
-and scores them with ``eval/voc_map.py``. The int8 trunk, AOT artifacts
-(``infer_override``/``fixed_batch``), data-parallel and multi-host eval
-raise :class:`NotImplementedError`.
+and scores them with ``eval/voc_map.py``. With ``int8`` the trunk runs
+quantized (``quantize/ptq.py``), calibrated on the phase's first images.
+AOT artifacts (``infer_override``/``fixed_batch``), data-parallel and
+multi-host eval raise :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,11 @@ from yolojax_torch.models import Model
 from yolojax_torch.nn.layers import Network, StemLayer
 from yolojax_torch.nn.stem import fuse_stem
 from yolojax_torch.postprocess.nms import postprocess_v1, postprocess_v2
+from yolojax_torch.quantize.ptq import (
+    QuantizedModel,
+    apply_int8,
+    quantize_model,
+)
 from yolojax_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -41,14 +47,22 @@ EVAL_SCORE_THRESH = 0.005
 def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
                   top_k: int, use_pallas: str = "auto",
                   candidates: str = "auto",
-                  compute_dtype: torch.dtype = torch.bfloat16
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  qm: Optional[QuantizedModel] = None,
                   ) -> Callable[[Network, torch.Tensor], Dict[str, torch.Tensor]]:
     """-> infer(net, images) -> {boxes, scores, classes, keep}, all fixed
-    shape, on the images' device. images: (N, H, W, 3) in [0, 1]."""
+    shape, on the images' device. images: (N, H, W, 3) in [0, 1].
+
+    ``qm``: a :class:`QuantizedModel` on the images' device; the int8
+    trunk (``apply_int8``) then runs instead of the forward, and ``net``
+    is not read."""
 
     @torch.inference_mode()
     def infer(net: Network, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        head = model.apply(net, images, compute_dtype=compute_dtype)
+        if qm is not None:
+            head = apply_int8(qm, images)
+        else:
+            head = model.apply(net, images, compute_dtype=compute_dtype)
         if model.kind == "v2":
             return postprocess_v2(
                 head, model.anchors, score_thresh=score_thresh,
@@ -124,10 +138,9 @@ def _dump_coco_json(path, detections, ground_truth, num_images,
              len(results), path)
 
 
-def _refuse_unported(int8, data_parallel, distributed, infer_override,
+def _refuse_unported(data_parallel, distributed, infer_override,
                      fixed_batch) -> None:
     for on, what in (
-        (int8, "int8 eval (detect.use_int8): the int8 trunk"),
         (data_parallel, "eval.data_parallel=on: multi-device eval"),
         (distributed, "eval.distributed: multi-host eval"),
         (infer_override is not None or fixed_batch,
@@ -161,7 +174,10 @@ def evaluate_model(
     dump_path: Optional[str] = None,  # write COCO-format GT+results JSON
     class_names: Optional[Sequence[str]] = None,  # labels for the dump
     device=None,  # default: the CUDA card (raises without one)
-    int8: bool = False,
+    int8: bool = False,  # post-training int8 conv trunk (implies fold)
+    calib_images: int = 8,  # int8 activation-calibration image count
+    calib_percentile: float = 100.0,  # int8 |act| percentile (100 = absmax)
+    quant_bits: int = 8,  # int8 code width (detect.quant_bits; <8 coarsens)
     data_parallel: Optional[bool] = None,  # None/False: the one device
     distributed: bool = False,
     infer_override=None,
@@ -170,28 +186,45 @@ def evaluate_model(
     """Run detection over a cached phase and return VOC (and with
     ``coco``, COCO) metrics plus ``num_images`` and ``num_detections``.
     ``net`` is not changed: the fold, the stem fusion and the move to the
-    device work on a copy."""
-    _refuse_unported(int8, data_parallel, distributed, infer_override,
-                     fixed_batch)
+    device work on a copy.
+
+    ``int8`` folds BN, fuses no stem, and quantizes the network on the
+    first ``calib_images`` canvases of the phase (in cache order), as
+    yolojax does."""
+    _refuse_unported(data_parallel, distributed, infer_override, fixed_batch)
     device = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = (torch.float32 if device.type == "cpu"
                          else torch.bfloat16)
     net = copy.deepcopy(net)
-    if fold:
+    if fold or int8:
         model, net = fold_bn(model, net, eps=bn_eps)
-        model, net = fuse_stem(model, net, impl=fuse_stem_impl)
-    net = serving_weights(net, device, compute_dtype)
-    infer = make_infer_fn(model, score_thresh=score_thresh,
-                          iou_thresh=nms_iou, top_k=top_k,
-                          use_pallas=use_pallas, candidates=candidates,
-                          compute_dtype=compute_dtype)
+        if not int8:  # int8 quantizes the trunk itself
+            model, net = fuse_stem(model, net, impl=fuse_stem_impl)
     loader = Loader(
         cache,
         LoaderConfig(batch_size=batch_size, canvas_dim=input_dim,
                      max_boxes=64, stretch=stretch, drop_remainder=False,
                      num_threads=8),
     )
+    qm = None
+    if int8:
+        net = net.to(device).requires_grad_(False).eval()  # f32: quantized
+        want = max(calib_images, 1)
+        chunks = []
+        for imgs, _, _, _ in loader.epoch(0, shuffle=False):
+            chunks.append(imgs)
+            if sum(c.shape[0] for c in chunks) >= want:
+                break
+        calib = torch.from_numpy(np.concatenate(chunks)[:want]).to(device)
+        qm = quantize_model(model, net, calib, percentile=calib_percentile,
+                            bits=quant_bits)
+    else:
+        net = serving_weights(net, device, compute_dtype)
+    infer = make_infer_fn(model, score_thresh=score_thresh,
+                          iou_thresh=nms_iou, top_k=top_k,
+                          use_pallas=use_pallas, candidates=candidates,
+                          compute_dtype=compute_dtype, qm=qm)
 
     detections = []
     ground_truth = []
