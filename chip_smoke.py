@@ -40,7 +40,20 @@ Phases, each of which raises on failure:
    ``cli.eval``, each counting its launches; hold small int8 models'
    codes on the card against the CPU, and the overfit model's int8 mAP
    against its f32 mAP;
-8. time the paths and the kernels on the card (the NMS kernel's build and
+8. drive the QAT -> export -> serve path: one QAT and one distill step of
+   a small v2 on the card against the CPU (TF32 off, the card's forward
+   taking the CPU's fake-quant codes), the same steps with TF32 on as the
+   control that must fail, and yolojax's gate that QAT beats PTQ on the
+   quantized objective (on four nets); ``cli.qat`` on
+   ``config.ini`` (3 steps, then 2 with ``--distill``) and ``cli.eval
+   detect.use_int8=1`` on its output; ``cli.export`` of three artifacts
+   (bf16 with the fused stem and int8 from the QAT weights at batch 8,
+   bf16 at batch 1), each held against the live program on the same
+   canvases with its kernels counted inside the exported graph;
+   ``cli.serve --artifact`` answering 32 concurrent requests as
+   ``cli.detect --artifact`` does; ``cli.detect --artifact --stdin`` and
+   ``cli.eval --artifact``; the QAT and distill step times at b64@416;
+9. time the paths and the kernels on the card (the NMS kernel's build and
    sweep phases also apart; the b128 int8 batch beside the bf16 ones, with
    every requant launch of it held against the plain version on its own
    sums; the b64@416 train step), and check that the fused-stem batch
@@ -65,6 +78,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -73,14 +87,27 @@ import torch
 from yolojax_torch.cli import cache as cache_cli
 from yolojax_torch.cli import detect as detect_cli
 from yolojax_torch.cli import eval as eval_cli
+from yolojax_torch.cli import export as export_cli
+from yolojax_torch.cli import qat as qat_cli
 from yolojax_torch.cli import train as train_cli
-from yolojax_torch.cli.detect import build_detector, build_serving, run_detect
+from yolojax_torch.cli.detect import (
+    build_detector,
+    build_serving,
+    load_artifact_detector,
+    run_detect,
+)
+from yolojax_torch.cli.serve import build_server
 from yolojax_torch.config import load_config
 from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.convert.store import load_network_npz, save_network_npz
 from yolojax_torch.data import augment
 from yolojax_torch.data.cache import build_cache, load_cache
-from yolojax_torch.data.loader import Loader, LoaderConfig, write_ppm
+from yolojax_torch.data.loader import (
+    Loader,
+    LoaderConfig,
+    decode_image,
+    write_ppm,
+)
 from yolojax_torch.eval.evaluator import evaluate_model, serving_weights
 from yolojax_torch.kernels import build
 from yolojax_torch.models import Model, get_model
@@ -109,7 +136,7 @@ from yolojax_torch.postprocess.nms import (
     nms_greedy_torch,
     postprocess_v2,
 )
-from yolojax_torch.quantize import cuda_int8, ptq
+from yolojax_torch.quantize import cuda_int8, ptq, qat
 from yolojax_torch.quantize.cuda_int8 import int8_requant_cuda
 from yolojax_torch.quantize.int8_ops import (
     gemm_operand,
@@ -118,8 +145,10 @@ from yolojax_torch.quantize.int8_ops import (
     int8_matmul,
     int8_requant_torch,
 )
+from yolojax_torch.serve import load_artifact
 from yolojax_torch.train import step as train_step
 from yolojax_torch.train.checkpoint import Checkpointer
+from yolojax_torch.utils.device import full_f32
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -178,6 +207,30 @@ REQUANT_OPS = 9
 # (whole rows), so its float64 temporaries stay a few GB
 PLAIN_CHUNK = 1 << 26
 INT8_PATHS = ("int8_detect", "int8_stdin", "int8_eval")
+# phase 9: QAT -> export -> serve. cli.qat's steps on config.ini; the
+# artifacts' fixed batch; the daemon's load
+QAT_STEPS, DISTILL_STEPS, ART_BATCH = 3, 2, 8
+SERVE_REQUESTS, SERVE_CLIENTS = 32, 8
+# one QAT / distill step on the card vs the CPU, TF32 off, from one folded
+# state on one batch. The card's forward takes the CPU's value at every
+# fake-quantized activation and keeps its own gradient (the estimator
+# passes it through as identity): a code flipped at a .5 boundary by the
+# convs' other sum order would otherwise move that activation a whole grid
+# step, and with it the loss by ~1e-4 and the gradients of the layers after
+# it by up to ~1e-2 (an H100 measured 1.4e-2 with two flips). The flips
+# are counted and printed. With the codes shared, the train-step limits
+# hold: loss terms 1e-5 relative, every gradient leaf 1e-4 of its largest
+# |value|; each parameter leaf's change in the step is held to the CPU's
+# by the norm of the difference over the norm of the change
+# (tests/test_torch_qat.py's 1e-2), the params after it to 1e-4 of their
+# largest value. The same steps with TF32 on, the control, must fail the
+# limits of the loss, the gradients or the changes.
+QAT_LOSS_RTOL, QAT_GRAD_RTOL, QAT_DELTA_RTOL = 1e-5, 1e-4, 1e-2
+# yolojax's QAT-beats-PTQ gate (tests/unit/test_qat.py), on this many
+# default-initialised nets
+GATE_SEEDS = 4
+QAT_PATHS = ("qat_eval", "artifact_bf16", "artifact_int8", "serve",
+             "artifact_stdin")
 
 
 def check(cond: bool, what: str) -> None:
@@ -517,25 +570,16 @@ def check_forward(cfg, npz: str, device, dim: int):
     """The f32 forward on ``device`` (TF32 off) against the CPU on a small
     input; returns the BN-folded model."""
     model = cfg.build_model()
-    model, net_cpu = fold_bn(model, load_network_npz(npz, model),
-                             eps=cfg.model.bn_eps)
+    model, net_cpu = fold_bn(model, load_network_npz(npz, model))
     net_dev = copy.deepcopy(net_cpu).to(device)
     small = torch.rand((2, dim, dim, 3),
                        generator=torch.Generator().manual_seed(SEED + 1))
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.inference_mode():
-            ref = model.apply(net_cpu, small, compute_dtype=torch.float32)
-            got = model.apply(net_dev, small.to(device),
-                              compute_dtype=torch.float32).cpu()
-            bf = model.apply(net_dev, small.to(device),
-                             compute_dtype=torch.bfloat16).cpu()
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
+    with full_f32(), torch.inference_mode():
+        ref = model.apply(net_cpu, small, compute_dtype=torch.float32)
+        got = model.apply(net_dev, small.to(device),
+                          compute_dtype=torch.float32).cpu()
+        bf = model.apply(net_dev, small.to(device),
+                         compute_dtype=torch.bfloat16).cpu()
     check(bool(torch.isfinite(bf).all()), "finite bf16 head")
     rel = float((got - ref).abs().max() / ref.abs().max())
     rel_bf = float((bf - ref).abs().max() / ref.abs().max())
@@ -643,7 +687,7 @@ def drive_eval_path(npz: str, tmp: str, device, n_images: int,
           "finite metrics")
     check(metrics["num_detections"] > 0, "the eval run detected something")
     return {"launches": launches, "metrics": metrics, "cache_dir": cache_dir,
-            "argv": argv, "seconds": seconds}
+            "argv": argv, "seconds": seconds, "img_dir": img_dir}
 
 
 def check_fused_head(cfg, npz: str, cache_dir: str, device) -> None:
@@ -654,8 +698,7 @@ def check_fused_head(cfg, npz: str, cache_dir: str, device) -> None:
         batch_size=EVAL_BATCH, canvas_dim=cfg.model.dim, max_boxes=64,
         drop_remainder=False, num_threads=4)).epoch(0, shuffle=False))[0]
     model = cfg.build_model()
-    model, net = fold_bn(model, load_network_npz(npz, model),
-                         eps=cfg.model.bn_eps)
+    model, net = fold_bn(model, load_network_npz(npz, model))
     fused_model, fused = fuse_stem(model, copy.deepcopy(net), impl="pallas")
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     net = serving_weights(net, device, dtype)
@@ -825,12 +868,8 @@ def check_train_card_vs_cpu(device) -> dict:
                                     compute_dtype=torch.float32)
     params = augment.draw_params(torch.Generator().manual_seed(SEED + 7), 4,
                                  augment.AugmentConfig())
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    try:
+    with full_f32():
         for dev in (torch.device("cpu"), device):
             ts = train_step.TrainState(0, copy.deepcopy(net).to(dev), None)
             ts.opt_state = tx.init(ts.params())
@@ -845,9 +884,6 @@ def check_train_card_vs_cpu(device) -> dict:
                 jitter_in = img
             img = augment.apply_color_jitter(jitter_in.to(dev), p)
             out[dev.type] = (ts, m, geo, img.cpu(), bx.cpu())
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
     (ts_c, m_c, geo_c, img_c, bx_c), (ts_d, m_d, geo_d, img_d, bx_d) = (
         out["cpu"], out[device.type])
     loss_err = max(abs(float(m_d[k]) - float(m_c[k]))
@@ -1213,9 +1249,10 @@ def kernel_device_us(fn, reps: int) -> dict:
 def time_nms(shifted, valid, keep, iou_thresh: float, card: str) -> dict:
     """The kernel's device time (launch overhead kept out), its build and
     sweep kernels timed apart (profiler, by kernel name), its time per call
-    from Python, the plain sweep's time per call (one CUDA-event pair around
-    each call: ~1,300 small launches, so mostly host time), and the
-    kernel's bound on these inputs."""
+    from Python (through the wrapper and its custom op, and through the
+    ctypes launcher alone: the op's dispatch cost), the plain sweep's time
+    per call (one CUDA-event pair around each call: ~1,300 small launches,
+    so mostly host time), and the kernel's bound on these inputs."""
     n, k = valid.shape
 
     def kernel():
@@ -1230,13 +1267,16 @@ def time_nms(shifted, valid, keep, iou_thresh: float, card: str) -> dict:
         check(len(us) == 1, f"the profile shows {fn_name} once")
         phase_ms[name] = us[0] / 1e3
     call_ms = statistics.median(cuda_ms(kernel, 20))
+    direct_ms = statistics.median(cuda_ms(
+        lambda: cuda_nms.launch(shifted, valid, iou_thresh), 20))
     plain_ms = statistics.median(cuda_ms(
         lambda: nms_greedy_torch(shifted, valid, iou_thresh), 3))
     bound_ms, bound_by, nbytes, ops = nms_bound_ms(shifted, valid, keep)
     print(f"  [{card}] nms_greedy at ({n}, {k}): kernel {ms * 1e3:.2f} us on "
           f"the device (profiled: build {phase_ms['build_ms'] * 1e3:.2f} us, "
           f"sweep {phase_ms['sweep_ms'] * 1e3:.2f} us a call; "
-          f"{call_ms * 1e3:.2f} us a call from Python), bound "
+          f"{call_ms * 1e3:.2f} us a call from Python, {direct_ms * 1e3:.2f} "
+          f"us of it without the custom op), bound "
           f"{bound_ms * 1e3:.3f} us ({bound_by}: {nbytes} B, {ops} f32 ops), "
           f"plain sweep {plain_ms * 1e3:.1f} us, library none", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1672,6 +1712,590 @@ def check_int8_map(model, net, tmp: str, device) -> tuple:
     return f32["map"], int8["map"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: QAT -> export -> serve
+# ---------------------------------------------------------------------------
+
+
+def _qat_batch(n: int, dim: int, seed: int) -> tuple:
+    rng = np.random.RandomState(seed)
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (n, 8, 2)),
+                            rng.uniform(0.05, 0.4, (n, 8, 2))], -1)
+    return (torch.from_numpy(rng.uniform(0, 1, (n, dim, dim, 3)).astype(
+                np.float32)),
+            torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(rng.randint(0, 20, (n, 8)).astype(np.int32)),
+            torch.from_numpy(rng.uniform(0, 1, (n, 8)) < 0.6))
+
+
+def _folded_tiny(seed: int, num_classes: int, dim: int):
+    model = get_model("yolo2", "tiny", num_classes)
+    gen = torch.Generator().manual_seed(seed)
+    net = model.init(gen, dim)
+    with torch.no_grad():
+        for layer in net.children():
+            if hasattr(layer, "mean"):
+                layer.mean.normal_(0.0, 0.1, generator=gen)
+                layer.var.uniform_(0.5, 1.5, generator=gen)
+    return fold_bn(model, net)
+
+
+@contextlib.contextmanager
+def _shared_codes(store: list, flips: Optional[list] = None):
+    """Inside, ``qat_forward``'s fake quantization of each activation
+    records its value in ``store`` (``flips`` None), or takes the value
+    recorded there, call for call, keeping its own gradient, and appends
+    to ``flips`` how many of its codes differed from it."""
+    orig = qat.fake_quant
+    recorded = iter(list(store))
+
+    def fake_quant(x, scale, qmax=127.0):
+        out = orig(x, scale, qmax)
+        if flips is None:
+            store.append(out.detach().cpu())
+            return out
+        ref = next(recorded).to(out.device)
+        flips.append(int(((out.detach() - ref).abs() > scale / 2).sum()))
+        return out + (ref - out.detach())
+
+    with mock.patch.object(qat, "fake_quant", fake_quant):
+        yield
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 on for convs and products inside (the control of
+    :func:`check_qat_card_vs_cpu`), the settings restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _qat_state_to(st, dev):
+    """A copy of a QAT state on ``dev``."""
+    opt = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+               else v) for k, v in st.opt_state.items()}
+    return qat.QatState(st.step, copy.deepcopy(st.net).to(dev), opt)
+
+
+def _qat_steps(model, start: dict, batch, scales, tx, dev, codes: dict,
+               flips: Optional[dict] = None) -> dict:
+    """One QAT and one distill step on ``dev`` (no augment), each from a
+    copy of its state in ``start`` (the distill teacher under "teacher"):
+    kind -> (params before, state after, metrics with grads), each forward
+    recording its activations in ``codes[kind]`` or, with ``flips``, taking
+    them from there."""
+    in_scale, act_scales = scales
+    b = tuple(t.to(dev) for t in batch)
+    teacher = copy.deepcopy(start["teacher"]).to(dev)
+    out = {}
+    for kind in ("qat", "distill"):
+        st = _qat_state_to(start[kind], dev)
+        before = {k: v.detach().clone() for k, v in st.params().items()}
+        with _shared_codes(codes.setdefault(kind, []),
+                           None if flips is None
+                           else flips.setdefault(kind, [])):
+            if kind == "qat":
+                st, m = qat.make_qat_step(model, tx, in_scale, act_scales,
+                                          augment=False)(
+                    st, b, SEED, 64, with_grads=True)
+            else:
+                st, m = qat.make_qat_distill_step(
+                    model, tx, in_scale, act_scales, augment=False)(
+                    st, b, teacher, SEED, 64, with_grads=True)
+        out[kind] = (before, st, m)
+    return out
+
+
+def _qat_step_errs(got: tuple, want: tuple) -> tuple:
+    """(loss terms' largest relative difference, worst gradient leaf's
+    largest difference over its largest |value|, worst parameter leaf's
+    change: norm of the difference over the norm of the CPU's change, the
+    params' largest difference over their largest |value|)."""
+    (b_d, st_d, m_d), (b_c, st_c, m_c) = got, want
+    keys = [k for k in m_c if k not in ("grads", "grad_norm")]
+    loss = max(abs(float(m_d[k]) - float(m_c[k]))
+               / max(abs(float(m_c[k])), 1e-30) for k in keys)
+    grads = max(float((m_d["grads"][k].cpu() - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for k, g in m_c["grads"].items())
+    p_d, p_c = st_d.params(), st_c.params()
+    delta = max(float(torch.linalg.vector_norm(
+        (p_d[k].detach().cpu() - b_d[k].cpu()) - (p_c[k].detach() - b_c[k])))
+        / max(float(torch.linalg.vector_norm(p_c[k].detach() - b_c[k])),
+              1e-30) for k in p_c)
+    params = _tree_err(p_d, {k: v.detach() for k, v in p_c.items()})
+    return loss, grads, delta, params
+
+
+def check_qat_card_vs_cpu(device) -> dict:
+    """One QAT step and one distill step of tiny v2 @ 64 (batch 2, QAT's
+    default adam) from the same state (folded, one CPU step in) on
+    ``device`` and on the CPU (TF32 off inside the steps), the card's
+    activations taken from the CPU's forward: loss terms, gradients and
+    each parameter's change. Then the control: the card's steps again with
+    TF32 on must fail a limit."""
+    model, folded = _folded_tiny(SEED + 9, 20, 64)
+    batch = _qat_batch(2, 64, SEED + 9)
+    scales = ptq.calibrate(model, folded, batch[0],
+                           compute_dtype=torch.float32)
+    tx = qat.make_qat_optimizer(qat.QatConfig())
+    # each kind from its state after one CPU step on another batch, so
+    # adam's moments are not zero (a first adam step moves every weight by
+    # lr * sign(gradient), whatever its size)
+    start = {"teacher": copy.deepcopy(folded).requires_grad_(False)}
+    first = _qat_steps(model, {"teacher": start["teacher"],
+                               "qat": qat.init_qat_state(
+                                   copy.deepcopy(folded), tx),
+                               "distill": qat.init_qat_state(
+                                   copy.deepcopy(folded), tx)},
+                       _qat_batch(2, 64, SEED + 8), scales, tx,
+                       torch.device("cpu"), {})
+    start.update({kind: first[kind][1] for kind in ("qat", "distill")})
+    codes: dict = {}
+    cpu = _qat_steps(model, start, batch, scales, tx, torch.device("cpu"),
+                     codes)
+    errs, flips = {}, {}
+    for what, ctx in (("TF32 off", contextlib.nullcontext()),
+                      ("control, TF32 on",
+                       mock.patch.object(qat, "full_f32", _tf32))):
+        flips[what] = {}
+        with ctx:
+            card = _qat_steps(model, start, batch, scales, tx, device,
+                              codes, flips[what])
+        for kind in ("qat", "distill"):
+            loss, grads, delta, params = _qat_step_errs(card[kind],
+                                                        cpu[kind])
+            errs[what, kind] = (loss, grads, delta, params)
+            print(f"  {kind} step tiny@64 b2 f32, {device.type} vs CPU "
+                  f"({what}): loss {loss:.2e} relative (limit "
+                  f"{QAT_LOSS_RTOL:g}), worst gradient leaf {grads:.2e} of "
+                  f"its max (limit {QAT_GRAD_RTOL:g}), worst param change "
+                  f"{delta:.2e} of its norm (limit {QAT_DELTA_RTOL:g}), "
+                  f"params {params:.2e} of max (limit "
+                  f"{TRAIN_STATE_RTOL:g}); codes taken from the CPU's that "
+                  f"differed, per layer {flips[what][kind]}", flush=True)
+    for kind in ("qat", "distill"):
+        loss, grads, delta, params = errs["TF32 off", kind]
+        check(loss <= QAT_LOSS_RTOL, f"{kind} loss on the card == CPU")
+        check(grads <= QAT_GRAD_RTOL and delta <= QAT_DELTA_RTOL
+              and params <= TRAIN_STATE_RTOL,
+              f"{kind} gradients and params on the card == CPU")
+        loss, grads, delta, _ = errs["control, TF32 on", kind]
+        check(loss > QAT_LOSS_RTOL or grads > QAT_GRAD_RTOL
+              or delta > QAT_DELTA_RTOL,
+              f"the {kind} step with TF32 on fails the card-vs-CPU limits")
+    return {"flips": flips, **{f"{w}_{k}_{n}": v for (w, k), e in
+                               errs.items() for n, v in
+                               zip(("loss", "grads", "delta", "params"),
+                                   e)}}
+
+
+def _qat_gate(model, net, x) -> tuple:
+    """yolojax's gate on one folded net: distil it toward its own f32
+    outputs under fake quantization for 60 adam steps at 1e-4. Returns the
+    60 losses and the real int8 program's MSE to the f32 target before (PTQ
+    of the original weights) and after (of the tuned ones)."""
+    with torch.no_grad(), full_f32():
+        target = model.apply(net, x, compute_dtype=torch.float32)
+    in_scale, act_scales = ptq.calibrate(model, net, x)
+
+    def int8_err(n):
+        qm = ptq.quantize_model(model, n.requires_grad_(False), x)
+        with torch.inference_mode():
+            err = float(((ptq.apply_int8(qm, x) - target) ** 2).mean())
+        n.requires_grad_(True)
+        return err
+
+    err_ptq = int8_err(net)
+    # the distill step with no augment is the gate's objective: the MSE of
+    # the fake-quant head to the frozen f32 forward on the same images
+    tx = train_step.make_optimizer(train_step.OptimizerConfig(
+        optimizer="adam", learning_rate=1e-4, weight_decay=0.0))
+    step = qat.make_qat_distill_step(model, tx, in_scale, act_scales,
+                                     augment=False)
+    teacher = copy.deepcopy(net).requires_grad_(False)
+    st = qat.init_qat_state(copy.deepcopy(net), tx)
+    n, dev = x.shape[0], x.device
+    batch = (x, torch.zeros((n, 1, 4), device=dev),
+             torch.zeros((n, 1), dtype=torch.int32, device=dev),
+             torch.zeros((n, 1), dtype=torch.bool, device=dev))
+    losses = []
+    for _ in range(60):
+        st, m = step(st, batch, teacher, SEED, x.shape[1])
+        losses.append(float(m["total"]))
+    return losses, err_ptq, int8_err(st.net)
+
+
+def check_qat_beats_ptq(device) -> tuple:
+    """yolojax's mechanism gate (tests/unit/test_qat.py) on the card, on
+    :data:`GATE_SEEDS` default-initialised, folded tiny v2 @ 32 nets: after
+    60 adam steps the fake-quant loss ends below its first value (the
+    straight-through estimator descends) and the real int8 program of the
+    tuned weights (the requant kernel) tracks the f32 target better than
+    PTQ of the original weights. yolojax asserts both on one net; on the
+    CPU either ratio lands above 1 on some nets, in yolojax's own gate and
+    the port's alike (the first adam steps throw the loss up ~1000x from
+    the quantization floor it starts at, and 60 steps bring it back to
+    about that floor), so the gate holds the geometric mean of each ratio
+    over the nets below 1 and prints every net's."""
+    x = torch.from_numpy(np.random.RandomState(7).uniform(
+        0, 1, (4, 32, 32, 3)).astype(np.float32)).to(device)
+    ratios = []
+    for k in range(GATE_SEEDS):
+        model = get_model("yolo2", "tiny", 2)
+        model, net = fold_bn(model, model.init(
+            torch.Generator().manual_seed(SEED + 10 + k), 32))
+        losses, err_ptq, err_qat = _qat_gate(model, net.to(device), x)
+        ratios.append((losses[-1] / losses[0], err_qat / err_ptq))
+        print(f"  QAT vs PTQ on the card (tiny v2 @ 32, net {k}, 60 adam "
+              f"steps): fake-quant loss first {losses[0]:.3e}, max "
+              f"{max(losses):.3e}, last {losses[-1]:.3e}; int8 MSE to the "
+              f"f32 target: PTQ {err_ptq:.3e}, QAT {err_qat:.3e}",
+              flush=True)
+    loss_ratio, err_ratio = (float(np.exp(np.mean(np.log(r))))
+                             for r in zip(*ratios))
+    print(f"  QAT vs PTQ over {GATE_SEEDS} nets: geometric mean of last / "
+          f"first loss {loss_ratio:.4f}, of QAT / PTQ int8 MSE "
+          f"{err_ratio:.4f} (each must be < 1)", flush=True)
+    check(loss_ratio < 1, "the straight-through estimator descends")
+    check(err_ratio < 1, "QAT beats PTQ on the quantized objective")
+    return loss_ratio, err_ratio
+
+
+def drive_qat_cli(npz: str, tr: dict, ev: dict, tmp: str, device,
+                  overrides=()) -> dict:
+    """``cli.qat`` on config.ini (Darknet-19 @ 416, batch 64 of 448
+    canvases) from the seeded weights over the train cache: three steps,
+    then two with ``--distill``; then ``cli.eval detect.use_int8=1`` on
+    each output, the first run's launches counted (path ``qat_eval``)."""
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    outs, launches, metrics = [], None, []
+    for steps, extra in ((QAT_STEPS, []), (DISTILL_STEPS, ["--distill"])):
+        out = os.path.join(tmp, f"qat{'_distill' if extra else ''}.npz")
+        argv = ["-c", "config.ini", "--weights", npz, "--output", out,
+                "--steps", str(steps), *extra, *cpu,
+                f"cache.basedir={tr['cache_dir']}", "train.summary_steps=1",
+                *overrides]
+        t0 = time.perf_counter()
+        with log_lines("qat") as lines:
+            run_cli(qat_cli, argv)
+        seconds = time.perf_counter() - t0
+        losses = [float(m.split("loss ")[1]) for m in lines
+                  if m.startswith("qat step")]
+        print(f"phase qat path: cli.qat {' '.join(extra) or '(detection '
+              f'loss)'} {steps} steps in {seconds:.2f} s: losses "
+              f"{[round(v, 4) for v in losses]}; {lines[-1]}", flush=True)
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              "cli.qat logged every step with a finite loss")
+        outs.append(out)
+    for i, out in enumerate(outs):
+        argv = eval_argv(out, ev["cache_dir"], device,
+                         ["detect.use_int8=1", *overrides])
+        result = {}
+        got = count_launches(lambda: result.update(
+            metrics=run_cli(eval_cli, argv)[0]))
+        metrics.append(result["metrics"])
+        launches = launches or got
+        print(f"  cli.eval detect.use_int8=1 --weights {os.path.basename(out)}"
+              f": mAP {result['metrics']['map']:.4f} over "
+              f"{result['metrics']['num_images']} images, launches {got}",
+              flush=True)
+        check(result["metrics"]["num_images"] == EVAL_IMAGES
+              and np.isfinite(result["metrics"]["map"]), "QAT npz evaluates")
+    return {"outputs": outs, "launches": launches, "metrics": metrics}
+
+
+def drive_export(npz: str, qat_npz: str, ppms: list, tmp: str, device,
+                 overrides=()) -> dict:
+    """``cli.export`` of three artifacts at the eval floor: bf16 with the
+    fused stem (batch 8), int8 from the QAT ``.npz`` calibrated on eight of
+    the PPM images (batch 8), bf16 (batch 1). Returns {name: (path, the
+    overrides, weights, seconds)}."""
+    calib = [a for p in ppms[:ART_BATCH] for a in ("--calib-image", p)]
+    batch = ["--batch", str(ART_BATCH)]
+    specs = {  # weights, flags, settings
+        "bf16_fused_b8": (npz, batch, ["detect.fuse_stem=pallas"]),
+        "int8_b8": (qat_npz, batch + calib, ["detect.use_int8=1"]),
+        "bf16_b1": (npz, [], []),
+    }
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    arts = {}
+    for name, (weights, flags, settings) in specs.items():
+        path = os.path.join(tmp, f"{name}.yjts")
+        t0 = time.perf_counter()
+        _, printed = run_cli(export_cli, [
+            "-c", "config.ini", "--weights", weights, "--out", path, *flags,
+            *cpu, "detect.threshold=0.005", *settings, *overrides])
+        seconds = time.perf_counter() - t0
+        print(f"phase export: {name}: {printed.strip()} in {seconds:.2f} s",
+              flush=True)
+        arts[name] = (path, settings, weights, seconds)
+    return arts
+
+
+def check_artifacts(arts: dict, ppms: list, canvases, card: str,
+                    overrides=()) -> dict:
+    """Each artifact against the live ``build_serving`` program of its
+    settings on the same canvases: keep masks equal, boxes equal (int8) or
+    within the fused-head limit (bf16), and its kernels launched inside the
+    exported graph; the batch-8 artifacts timed against their live
+    programs (CUDA events, median of 5, in turns)."""
+    device = canvases.device
+    dim = canvases.shape[1]
+    calib = [augment.letterbox_host(decode_image(p), dim)[0]
+             for p in ppms[:ART_BATCH]]
+    launches, times = {}, {}
+    for name, (path, settings, weights, _) in arts.items():
+        art = load_artifact(path, device=device)
+        batch = art.meta["batch"]
+        x = canvases[:batch].contiguous()
+        cfg = load_config(["config.ini"], ["detect.threshold=0.005",
+                                           *settings, *overrides])
+        _, _, infer_fn, net, _ = build_serving(
+            cfg, weights, calib if cfg.detect.use_int8 else None,
+            device=device)
+        got = {}
+        launches[name] = count_launches(lambda: got.update(art(x)))
+        want = infer_fn(net, x)
+        keep_equal = torch.equal(got["keep"], want["keep"])
+        box_err = float((got["boxes"] - want["boxes"]).abs().max()
+                        / want["boxes"].abs().max())
+        print(f"  artifact {name} (b{batch}, platforms "
+              f"{art.meta['platforms']}, {art.meta['payload_bytes'] / 1e6:.1f}"
+              f" MB) vs the live program: keep equal {keep_equal} "
+              f"({int(got['keep'].sum())} kept), boxes max err "
+              f"{box_err:.2e} of max; launches {launches[name]}", flush=True)
+        check(keep_equal, f"{name}: keep == live keep")
+        if cfg.detect.use_int8:
+            check(torch.equal(got["boxes"], want["boxes"]),
+                  f"{name}: boxes == live boxes")
+        else:
+            check(box_err <= STEM_HEAD_RTOL, f"{name}: boxes near live")
+        if batch == ART_BATCH and device.type == "cuda":
+            runs = {"live": [], "artifact": []}
+            for key in ("live", "artifact", "artifact", "live"):
+                fn = (lambda: infer_fn(net, x)) if key == "live" else (
+                    lambda: art(x))
+                runs[key] += cuda_ms(fn, 5)
+            times[name] = {k: statistics.median(v) for k, v in runs.items()}
+            print(f"  [{card}] {name} b{batch}@{dim}: artifact "
+                  f"{times[name]['artifact']:.3f} ms, live program "
+                  f"{times[name]['live']:.3f} ms (median of 10 each, in "
+                  f"turns)", flush=True)
+        del art, net, infer_fn
+        torch.cuda.empty_cache()
+    return {"launches": launches, "times": times}
+
+
+def drive_serve(arts: dict, ppms: list, device, card: str,
+                overrides=()) -> dict:
+    """``cli.serve --artifact`` (the int8 batch-8 artifact) in this process
+    on 127.0.0.1, port 0: 32 image files POSTed from 8 threads; each answer
+    equal to ``cli.detect --artifact`` on that image (the same detections
+    per image; scores and boxes within the JSON's rounding of the direct
+    artifact path); ``/stats`` 32 images and 0 errors. Returns the
+    daemon's launches and its rate, latency and fill."""
+    import threading
+    import urllib.request
+
+    path = arts["int8_b8"][0]
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    httpd, batcher = build_server(load_config(["config.ini"], overrides),
+                                  "127.0.0.1", 0, artifact=path,
+                                  window_ms=5.0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    files = ppms[:SERVE_REQUESTS]
+    blobs = []
+    for p in files:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    answers, lat = [None] * len(files), [0.0] * len(files)
+
+    def post(i):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + "/detect", data=blobs[i],
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            answers[i] = (r.status, json.loads(r.read().decode()))
+        lat[i] = (time.perf_counter() - t0) * 1e3
+
+    def burst():
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            list(pool.map(post, range(len(files))))
+
+    try:
+        t0 = time.perf_counter()
+        launches = count_launches(burst)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read().decode())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+        thread.join(30)
+    check(all(a is not None and a[0] == 200 for a in answers),
+          "every request answered 200")
+    print(f"phase serve: cli.serve --artifact int8_b8: {len(files)} requests "
+          f"from {SERVE_CLIENTS} threads, stats {stats}; launches "
+          f"{launches}", flush=True)
+    check(stats["images"] == len(files) and stats["errors"] == 0,
+          "/stats: every image, no error")
+    # the same images through cli.detect --artifact, and its direct path
+    argv = ["-c", "config.ini", "--artifact", path, *overrides, *cpu]
+    for p in files:
+        argv += ["--image", p]
+    _, printed = run_cli(detect_cli, argv)
+    per_image = {}
+    for line in printed.splitlines():
+        label, rest = line.split(": ", 1)
+        per_image.setdefault(label, []).append(rest.split()[0])
+    (names, dim, infer, batch), _ = load_artifact_detector(path, device)
+    filler = np.full((dim, dim, 3), 0.5, np.float32)
+
+    def direct(p):
+        raw = decode_image(p)
+        canvas, tf = augment.letterbox_host(raw, dim)
+        out = infer(np.stack([canvas.numpy()] + [filler] * (batch - 1)))
+        return detect_cli._extract(out, 0, tf, raw.shape, names)
+
+    for p, (_, body) in zip(files, answers):
+        got = body["detections"]
+        label = os.path.basename(p)
+        want = direct(p)
+        if [d["name"] for d in got] != per_image.get(label, []):
+            first = next((i for i, (g, w) in enumerate(zip(got, want))
+                          if g["name"] != w[0]), min(len(got), len(want)))
+            print(f"  {label}: the daemon answered {len(got)} detections "
+                  f"(batch_fill {body['batch_fill']}), cli.detect printed "
+                  f"{len(per_image.get(label, []))}, the direct path "
+                  f"{len(want)}; from position {first}, daemon "
+                  f"{[(d['name'], d['score']) for d in got[first:first + 4]]}"
+                  f", direct "
+                  f"{[(n, round(s, 5)) for n, _, s, _ in want[first:first + 4]]}",
+                  flush=True)
+        check([d["name"] for d in got] == per_image.get(label, []),
+              f"daemon == cli.detect --artifact on {label}")
+        check(len(got) == len(want) and all(
+            g["class"] == cls and abs(g["score"] - score) <= 1e-4
+            and max(abs(a - b) for a, b in zip(g["box"], box)) <= 0.02
+            for g, (_, cls, score, box) in zip(got, want)),
+            f"daemon == the direct artifact path on {label}")
+    rps = len(files) / wall
+    p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+    print(f"  [{card}] daemon int8_b8 artifact: {rps:.1f} requests/s over "
+          f"{len(files)} requests ({wall * 1e3:.1f} ms wall), latency p50 "
+          f"{p50:.2f} ms p99 {p99:.2f} ms, mean_fill "
+          f"{stats['mean_fill']:.2f} of {batch}; every answer equal to "
+          f"cli.detect --artifact", flush=True)
+    return {"launches": launches, "batches": stats["batches"], "rps": rps,
+            "p50_ms": p50, "p99_ms": p99, "mean_fill": stats["mean_fill"]}
+
+
+def drive_artifact_clis(arts: dict, ev: dict, ppms: list, device,
+                        overrides=()) -> dict:
+    """``cli.detect --artifact --stdin`` (the batch-1 artifact) on three
+    paths and ``cli.eval --artifact`` (the int8 batch-8 artifact) on the 64
+    images, each run's launches counted."""
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    printed = {}
+    saved = sys.stdin
+
+    def stream():
+        sys.stdin = io.StringIO("\n".join(ppms[:3]) + "\n")
+        try:
+            printed["stdin"] = run_cli(detect_cli, [
+                "-c", "config.ini", "--artifact", arts["bf16_b1"][0],
+                "--stdin", *overrides, *cpu])[1]
+        finally:
+            sys.stdin = saved
+
+    launches = {"artifact_stdin": count_launches(stream)}
+    blocks = printed["stdin"].split("\n\n")[:-1]
+    print(f"phase artifact CLIs: cli.detect --artifact bf16_b1 --stdin: "
+          f"{len(blocks)} blocks, launches {launches['artifact_stdin']}",
+          flush=True)
+    check(len(blocks) == 3, "--stdin answered each path")
+    result = {}
+    argv = ["-c", "config.ini", "--artifact", arts["int8_b8"][0],
+            f"cache.basedir={ev['cache_dir']}", *overrides, *cpu]
+    launches["artifact_int8"] = count_launches(
+        lambda: result.update(metrics=run_cli(eval_cli, argv)[0]))
+    m = result["metrics"]
+    print(f"  cli.eval --artifact int8_b8: mAP {m['map']:.4f} over "
+          f"{m['num_images']} images, {m['num_detections']} detections; "
+          f"launches {launches['artifact_int8']}", flush=True)
+    check(m["num_images"] == EVAL_IMAGES and np.isfinite(m["map"]),
+          "cli.eval --artifact metrics")
+    return launches
+
+
+def time_qat_steps(cfg, npz: str, device, card: str) -> dict:
+    """The QAT and distill steps of ``cli.qat`` at config.ini's shape (a
+    batch of 64 canvases of 448, augmented to 416; f32, TF32 off) on a
+    device-resident batch: CUDA events, median of 5 after 2 warm-ups, and
+    each step's peak device memory; then one step's profile."""
+    model = cfg.build_model()
+    fm, folded = fold_bn(model, load_network_npz(npz, model))
+    folded = folded.to(device)
+    batch = train_batch(cfg, device)
+    in_scale, act_scales = ptq.calibrate(
+        fm, folded, augment.resize(batch[0][:16], cfg.model.dim))
+    tx = qat.make_qat_optimizer(qat.QatConfig())
+    teacher = copy.deepcopy(folded).requires_grad_(False)
+    out = {}
+    for kind in ("qat", "distill"):
+        state = {"st": qat.init_qat_state(copy.deepcopy(folded), tx)}
+        if kind == "qat":
+            fn = qat.make_qat_step(fm, tx, in_scale, act_scales,
+                                   loss_cfg=cfg.loss_config(),
+                                   aug_cfg=cfg.augment)
+
+            def one():
+                state["st"], m = fn(state["st"], batch, SEED, cfg.model.dim)
+                return m
+        else:
+            fn = qat.make_qat_distill_step(fm, tx, in_scale, act_scales,
+                                           aug_cfg=cfg.augment)
+
+            def one():
+                state["st"], m = fn(state["st"], batch, teacher, SEED,
+                                    cfg.model.dim)
+                return m
+
+        one()
+        times = cuda_ms(one, 5)  # after its own warm-up step: 2 in all
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m = one()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(bool(torch.isfinite(m["total"])), f"finite timed {kind} loss")
+        ms = statistics.median(times)
+        n = batch[0].shape[0]
+        print(f"  [{card}] {kind} step b{n}@{cfg.model.dim} f32 (canvas "
+              f"{batch[0].shape[1]}, augment + fake-quant forward + loss + "
+              f"backward + adam), device-resident: {ms:.3f} ms/step "
+              f"(median of 5: {', '.join(f'{t:.3f}' for t in times)}), "
+              f"{n / ms * 1e3:.1f} img/s, peak device memory {peak:.2f} GiB",
+              flush=True)
+        out[kind] = {"ms": ms, "peak_gib": peak}
+        if kind == "qat":
+            profile_batch(one, card + ", qat step")
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
@@ -1734,6 +2358,63 @@ def main() -> int:
         _, _, om, onet = check_overfit(device)
         check_int8_map(om, onet, tmp, device)
 
+        print("phase qat -> export -> serve:", flush=True)
+
+        def qat_phase():
+            check_qat_card_vs_cpu(device)
+            check_qat_beats_ptq(device)
+            qr = drive_qat_cli(npz, tr, ev, tmp, device)
+            time_qat_steps(load_config(["config.ini"]), npz, device, card)
+            ppms = sorted(os.path.join(ev["img_dir"], f)
+                          for f in os.listdir(ev["img_dir"]))
+            arts = drive_export(npz, qr["outputs"][0], ppms, tmp, device)
+            art_run = check_artifacts(arts, ppms, run["canvases"], card)
+            served = drive_serve(arts, ppms, device, card)
+            art_cli = drive_artifact_clis(arts, ev, ppms, device)
+            return qr, arts, art_run, served, art_cli
+
+        # as users run these entry points: in a process without cuDNN's
+        # autotuned plans. Turning autotuning off is not enough: cuDNN's
+        # plans are cached per thread, under a key without the autotuning
+        # flag, so this thread still holds the plans it autotuned in the
+        # earlier phases. With them its cli.detect --artifact has run the
+        # int8 head conv on another engine than the daemon's dispatch
+        # thread, whose scores then all differed in their last bits, and
+        # now and then an image's detections in their order. The phase
+        # runs in a thread of its own, whose cache starts empty, and
+        # without autotuning, which costs ~60 s on QAT's first f32 step at
+        # b64.
+        torch.backends.cudnn.benchmark = False
+        with ThreadPoolExecutor(1) as pool:
+            qr, arts, art_run, served, art_cli = pool.submit(
+                qat_phase).result()
+        torch.backends.cudnn.benchmark = True
+        print(f"  [{card}] export seconds: " + ", ".join(
+            f"{k} {v[3]:.2f} s" for k, v in arts.items()), flush=True)
+        qat_launches = {"qat_eval": qr["launches"],
+                        "artifact_bf16": art_run["launches"]["bf16_fused_b8"],
+                        "artifact_int8": art_cli["artifact_int8"],
+                        "serve": served["launches"],
+                        "artifact_stdin": art_cli["artifact_stdin"]}
+        art_batches = -(-EVAL_IMAGES // ART_BATCH)
+        for what, got, (nms, stem, requant) in (
+                ("the QAT npz's int8 eval", qr["launches"],
+                 (batches, 0, n_int8 * batches)),
+                ("artifact bf16_fused_b8", art_run["launches"]["bf16_fused_b8"],
+                 (1, 1, 0)),
+                ("artifact int8_b8", art_run["launches"]["int8_b8"],
+                 (1, 0, n_int8)),
+                ("artifact bf16_b1", art_run["launches"]["bf16_b1"], (1, 0, 0)),
+                ("the daemon", served["launches"],
+                 (served["batches"], 0, n_int8 * served["batches"])),
+                ("cli.detect --artifact --stdin", art_cli["artifact_stdin"],
+                 (3, 0, 0)),
+                ("cli.eval --artifact", art_cli["artifact_int8"],
+                 (art_batches, 0, n_int8 * art_batches))):
+            check(got == {"nms_greedy": nms, "stem_fused": stem,
+                          "int8_requant": requant},
+                  f"{what} launched its kernels inside the program")
+
         print(f"phase times [{card}]:", flush=True)
         time_path(cfg, npz, model, run, card)
         progs.update(int8_programs(npz, run["canvases"]))
@@ -1761,7 +2442,8 @@ def main() -> int:
     # launches_by_path: each path's own run
     by_path = {name: {"serving": serving, "eval": ev["launches"][name],
                       "train": tr["launches"][name],
-                      **{p: i8["launches"][p][name] for p in INT8_PATHS}}
+                      **{p: i8["launches"][p][name] for p in INT8_PATHS},
+                      **{p: qat_launches[p][name] for p in QAT_PATHS}}
                for name, serving in (("nms_greedy", run["launches"]),
                                      ("stem_fused", run["stem_launches"]),
                                      ("int8_requant", run["int8_launches"]))}

@@ -114,16 +114,40 @@ def test_detect_fuse_stem(tiny_setup, impl):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("flag", [["--artifact", "m.yjsa"], ["--stdin"],
+@pytest.mark.parametrize("flag", [["--artifact", "m.yjts"], ["--stdin"],
                                   ["--data-parallel"]])
 def test_unported_detect_flags_raise(tiny_setup, monkeypatch, capsys, flag):
-    """Each case of a flag the detect CLI once refused: --artifact and
-    --data-parallel are not ported and raise; --stdin runs and must serve
-    the paths it reads, answering an unreadable one in order (the test
-    keeps its name so each case keeps its identity)."""
+    """Each case of a flag the detect CLI once refused: --data-parallel is
+    not ported and raises; --stdin runs and must serve the paths it reads,
+    answering an unreadable one in order; --artifact runs and must print
+    what --weights prints for the same program (a CPU artifact exported
+    from the same weights). The test keeps its name so each case keeps its
+    identity; tests/test_torch_serve_cli.py covers the artifact paths."""
     import cv2
 
     ini, npz, tmp = tiny_setup
+    if flag[0] == "--artifact":
+        from yolojax_torch.serve import save_artifact
+
+        img = str(tmp / "art.png")
+        cv2.imwrite(img, np.random.RandomState(8).randint(
+            0, 256, (50, 70, 3), np.uint8))
+        cfg = load_config([ini])
+        names, dim, infer_fn, net, dev = detect.build_serving(
+            cfg, npz, device="cpu")
+        art = str(tmp / flag[1])
+        save_artifact(art, infer_fn, net, batch=1, dim=dim,
+                      meta={"names": list(names), "stretch": False},
+                      device=dev)
+        printed = []
+        for source in (["--weights", npz], ["--artifact", art]):
+            monkeypatch.setattr(sys, "argv", ["detect", "-c", ini, *source,
+                                              "--image", img, "--device",
+                                              "cpu"])
+            detect.main()
+            printed.append(capsys.readouterr().out)
+        assert printed[1] == printed[0] and printed[0].startswith("art.png: ")
+        return
     if flag == ["--stdin"]:
         img = str(tmp / "s.png")
         cv2.imwrite(img, np.random.RandomState(7).randint(

@@ -310,12 +310,94 @@ def test_cli_eval_unported_settings_raise(eval_setup, monkeypatch, capsys,
 
 
 def test_cli_eval_refuses_artifacts_and_bad_flags(eval_setup, monkeypatch):
-    with pytest.raises(NotImplementedError, match="--artifact"):
+    """``--artifact`` is ported (tests/test_torch_serve_cli.py scores one):
+    a yolojax ``.yjsa`` is refused with the route to a port artifact, and
+    ``--weights`` with ``--artifact`` is a usage error; a bad
+    ``eval.data_parallel`` value is refused."""
+    from yolojax.serve import MAGIC as JAX_MAGIC
+
+    yjsa = eval_setup["tmp"] / "m.yjsa"
+    blob = b'{"platforms": ["cpu"]}'
+    yjsa.write_bytes(JAX_MAGIC + len(blob).to_bytes(4, "little") + blob)
+    with pytest.raises(ValueError, match="yolojax_torch.cli.export"):
         run_cli("yolojax_torch.cli.eval",
-                ["-c", eval_setup["ini"], "--artifact", "m.yjsa",
+                ["-c", eval_setup["ini"], "--artifact", str(yjsa),
                  "--device", "cpu"], monkeypatch)
+    with pytest.raises(SystemExit):
+        run_cli("yolojax_torch.cli.eval",
+                ["-c", eval_setup["ini"], "--artifact", str(yjsa),
+                 "--weights", eval_setup["npz"], "--device", "cpu"],
+                monkeypatch)
     cfg = load_config([eval_setup["ini"]], ["eval.data_parallel=maybe"])
     with pytest.raises(ValueError, match="data_parallel"):
         cfg.eval.data_parallel_flag()
     assert load_config([eval_setup["ini"]], ["eval.data_parallel=off"]) \
         .eval.data_parallel_flag() is False
+
+
+@pytest.fixture(scope="module")
+def bn_eps_setup(tmp_path_factory):
+    """A tiny-v2 ``.npz`` whose running variances lie in [5e-4, 2e-3],
+    where the BN fold's eps matters (at 1e-3 conv_0's folded weights move
+    by ~40% of their max), a four-image cache and an INI that sets
+    ``[model] bn_eps = 0.001``."""
+    tmp = tmp_path_factory.mktemp("bn_eps")
+    model = get_model("yolo2", "tiny", 20)
+    gen = torch.Generator().manual_seed(31)
+    net = model.init(gen, DIM)
+    with torch.no_grad():
+        for layer in net.children():
+            if hasattr(layer, "var"):
+                layer.var.uniform_(5e-4, 2e-3, generator=gen)
+                layer.mean.normal_(0.0, 0.01, generator=gen)
+                layer.scale.uniform_(0.02, 0.05, generator=gen)
+    from yolojax_torch.convert.store import save_network_npz
+
+    npz = str(tmp / "w.npz")
+    save_network_npz(npz, model, net)
+    voc = str(tmp / "voc")
+    write_synthetic_voc(voc, n_images=4, size=(DIM, DIM), seed=5)
+    build_cache(str(tmp / "cache"), "test",
+                [{"kind": "voc", "root": voc, "image_set": "test"}])
+    ini = tmp / "t.ini"
+    ini.write_text(
+        "[model]\nmodel = yolo2\ninference = tiny\n"
+        f"dim = {DIM}\nnames_file = {REPO}/config/names/voc.txt\n"
+        "bn_eps = 0.001\n"
+        f"[cache]\nbasedir = {tmp / 'cache'}\n"
+        "[detect]\nthreshold = 0.005\ntop_k = 64\n[eval]\nbatch_size = 4\n")
+    return {"npz": npz, "ini": str(ini)}
+
+
+@pytest.mark.parametrize("entry", ["build_serving", "cli.eval"])
+def test_bn_eps_setting_leaves_the_fold_at_1e5(bn_eps_setup, entry,
+                                              monkeypatch, capsys):
+    """yolojax parses ``[model] bn_eps`` but its detect and eval fold BN at
+    ``fold_bn``'s default 1e-5; so does the port: ``build_serving``'s
+    folded weights equal yolojax's 1e-5 fold bit for bit, and ``cli.eval``
+    reports yolojax's ``cli/eval.py`` metrics on the same ``.npz``."""
+    npz, ini = bn_eps_setup["npz"], bn_eps_setup["ini"]
+    jm = jax_get_model("yolo2", "tiny", 20)
+    _, want, _ = jax_fold_bn(jm, *load_params_npz(npz))
+    if entry == "build_serving":
+        from yolojax_torch.cli.detect import build_serving
+        from yolojax_torch.convert.interchange import params_to_jax
+
+        cfg = load_config([ini])
+        assert cfg.model.bn_eps == 1e-3
+        _, _, _, net, _ = build_serving(cfg, npz, device="cpu")
+        folded = cfg.build_model()
+        got, _ = params_to_jax(fold_bn(folded, load_network_npz(
+            npz, folded))[0], net)
+        for name, layer in want.items():
+            for k, v in layer.items():
+                np.testing.assert_array_equal(got[name][k], np.asarray(v),
+                                              err_msg=name)
+        return
+    out = {}
+    for key, module in (("jax", "cli.eval"), ("port", "yolojax_torch.cli.eval")):
+        extra = ["--device", "cpu"] if key == "port" else []
+        run_cli(module, ["-c", ini, "--weights", npz, *extra], monkeypatch)
+        out[key] = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["port"]["num_detections"] == out["jax"]["num_detections"] > 0
+    assert_metrics_equal(out["port"], out["jax"], tol=1e-6)

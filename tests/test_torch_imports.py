@@ -54,7 +54,26 @@ def test_port_imports_without_jax():
     assert {"yolojax_torch.cli.train", "yolojax_torch.train.losses",
             "yolojax_torch.train.step", "yolojax_torch.train.checkpoint",
             "yolojax_torch.utils.metrics", "yolojax_torch.utils.profiling",
-            "yolojax_torch.data.augment"} <= names
+            "yolojax_torch.data.augment", "yolojax_torch.quantize.qat",
+            "yolojax_torch.cli.qat", "yolojax_torch.serve",
+            "yolojax_torch.serve.batching", "yolojax_torch.cli.export",
+            "yolojax_torch.cli.serve", "yolojax_torch.kernels.ops"} <= names
+
+
+def test_pyproject_lists_every_port_package():
+    """A non-editable install carries only the packages ``pyproject.toml``
+    lists: every directory of ``yolojax_torch/`` with an ``__init__.py``
+    must be there."""
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        listed = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    found = {os.path.relpath(d, REPO).replace(os.sep, ".")
+             for d, _, files in os.walk(os.path.join(REPO, "yolojax_torch"))
+             if "__init__.py" in files}
+    assert {"yolojax_torch.quantize", "yolojax_torch.serve",
+            "yolojax_torch.train"} <= found
+    assert found <= listed, sorted(found - listed)
 
 
 def test_eval_and_cache_entry_points_run_without_jax(tmp_path):

@@ -9,6 +9,8 @@ Port of ``cli/detect.py``. Usage:
       --image IMG [--image IMG2 ...] [--out OUT] [--device cpu]
   ... --weights W.npz --stdin [--out DIR]   # serve: one image path per
                                             # line, weights loaded once
+  ... --artifact m.yjts --image IMG          # an exported serving artifact
+                                            # (cli/export.py), also --stdin
 
 ``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
 directory (``detect.use_ema=1``: its EMA weights). ``detect.fuse_stem`` =
@@ -16,8 +18,10 @@ directory (``detect.use_ema=1``: its EMA weights). ``detect.fuse_stem`` =
 plain version on the CPU), ``xla`` as the packed conv in PyTorch.
 ``detect.use_int8=1`` runs the int8 trunk (``quantize/ptq.py``), calibrated
 on the first ``detect.calib_images`` inputs; with ``detect.fuse_stem`` not
-off its conv0 + pool 1 is the packed int8 stem. Not ported yet (they raise
-NotImplementedError): ``--artifact`` and ``--data-parallel``.
+off its conv0 + pool 1 is the packed int8 stem. ``--artifact`` serves an
+exported artifact instead (names, dim, thresholds and the letterbox style
+come from its header; ``--stdin`` needs one exported with batch 1).
+``--data-parallel`` is not ported yet (it raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -62,7 +66,9 @@ def build_serving(cfg, weights_path: str, calib_canvases=None, *,
     names = cfg.names()
     dim = cfg.model.dim
     net = load_weights(weights_path, model, use_ema=cfg.detect.use_ema)
-    model, net = fold_bn(model, net, eps=cfg.model.bn_eps)
+    # BN folds at the forward's 1e-5, as yolojax's detect does: it never
+    # reads [model] bn_eps
+    model, net = fold_bn(model, net)
     compute = torch.float32 if device.type == "cpu" else torch.bfloat16
     qm = None
     if cfg.detect.use_int8:
@@ -113,6 +119,36 @@ def build_detector(cfg, weights_path: str, calib_canvases=None, device=None):
     return names, dim, infer
 
 
+def load_artifact_detector(artifact_path: str, device=None):
+    """Serve from an exported artifact (``cli/export.py``): names, dim and
+    thresholds come from its header, the program from its payload; no
+    config ``[model]`` section or weight file is read. Returns
+    ((names, dim, infer(canvases) -> dict of numpy arrays, fixed_batch),
+    meta)."""
+    from yolojax_torch.serve import load_artifact
+
+    art = load_artifact(artifact_path, device=device)
+    log.info("serving artifact: dim %d batch %d platforms %s (%d classes)",
+             art.meta["dim"], art.meta["batch"], art.meta["platforms"],
+             len(art.meta["names"]))
+
+    def infer(canvases):
+        x = torch.as_tensor(canvases).to(art.device, torch.float32)
+        return {k: v.cpu().numpy() for k, v in art(x.contiguous()).items()}
+
+    return (tuple(art.meta["names"]), int(art.meta["dim"]), infer,
+            int(art.meta["batch"])), art.meta
+
+
+def sync_artifact_cfg(cfg, meta):
+    """The config with the letterbox style the artifact was exported for:
+    host preprocessing must agree with the baked program."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, detect=dataclasses.replace(
+        cfg.detect, stretch=bool(meta.get("stretch", cfg.detect.stretch))))
+
+
 class LazyDetector:
     """Deferred detector build for the stream (``--stdin``): buffers the
     first ``detect.calib_images`` readable frames so int8 activation scales
@@ -122,7 +158,8 @@ class LazyDetector:
     they emit at once when nothing is buffered.
 
     ``process(item)`` is the per-frame callback; it reads ``self.infer``
-    and ``self.names`` (bound by :meth:`flush`)."""
+    and ``self.names`` (bound by :meth:`flush`, or :meth:`bind` for an
+    exported artifact, where nothing is buffered)."""
 
     def __init__(self, cfg, weights_path: str, process, device=None):
         self._cfg = cfg
@@ -137,8 +174,16 @@ class LazyDetector:
         self.infer = None
 
     @property
+    def ready(self) -> bool:
+        return self.infer is not None
+
+    @property
     def pending_frames(self) -> int:
         return sum(e[0] == "frame" for e in self._pending)
+
+    def bind(self, names, dim, infer) -> None:
+        """Serve an already-built program (an artifact): no lazy build."""
+        self.names, self.dim, self.infer = names, dim, infer
 
     def add_frame(self, canvas, item) -> None:
         if self.infer is None:
@@ -230,8 +275,10 @@ def run_detect(cfg, weights_path: str,
     formats with cv2) or decoded HWC RGB arrays. Prints one
     ``label: name score [x0, y0, x1, y1]`` line per detection and returns
     [(label, raw, dets)]. ``detector`` reuses a :func:`build_detector`
-    result. With ``detect.use_int8`` a new detector calibrates on the first
-    ``detect.calib_images`` inputs, letterboxed as the forward sees them."""
+    result, or is the (names, dim, infer, fixed_batch) of
+    :func:`load_artifact_detector`. With ``detect.use_int8`` a new detector
+    calibrates on the first ``detect.calib_images`` inputs, letterboxed as
+    the forward sees them."""
     if detector is None:
         calib = None
         if cfg.detect.use_int8:
@@ -241,10 +288,11 @@ def run_detect(cfg, weights_path: str,
                      for j, image in enumerate(
                          images[:max(cfg.detect.calib_images, 1)])]
         detector = build_detector(cfg, weights_path, calib, device=device)
-    names, dim, infer = detector
-    # one compiled batch shape in yolojax; here a fixed batch keeps the
-    # cuDNN plans warm across groups
-    batch = 1 if len(images) == 1 else min(max(cfg.eval.batch_size, 1), 32)
+    names, dim, infer, *fixed = detector
+    # an artifact takes exactly its baked batch; a live program a fixed
+    # batch too, which keeps the cuDNN plans warm across groups
+    batch = fixed[0] if fixed else (
+        1 if len(images) == 1 else min(max(cfg.eval.batch_size, 1), 32))
     results = []
     for start in range(0, len(images), batch):
         group = images[start: start + batch]
@@ -292,14 +340,16 @@ def run_detect(cfg, weights_path: str,
 
 
 def run_stream(cfg, weights_path: str, out_dir: Optional[str] = None,
-               lines=None, device=None) -> int:
+               lines=None, device=None, detector=None) -> int:
     """Serve detections over a stream of image paths (one per line, from
     ``lines`` or stdin). Weights load and the program is bound once; each
     image then pays only its decode, letterbox and device time. Prints the
     ``name: label score [x0, y0, x1, y1]`` lines of each image followed by
     a blank line, and ``name: ERROR unreadable`` (and a blank line) for a
     path that does not decode, in input order; with ``out_dir``, writes
-    each annotated image there. Returns the count of images served."""
+    each annotated image there. ``detector``: the (names, dim, infer,
+    fixed_batch) of :func:`load_artifact_detector`, which must have batch
+    1. Returns the count of images served."""
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
     if lines is None:
@@ -330,7 +380,14 @@ def run_stream(cfg, weights_path: str, out_dir: Optional[str] = None,
         print(flush=True)
 
     det = LazyDetector(cfg, weights_path, process, device=device)
-    if det.calib_target > 1:
+    if detector is not None:  # an artifact: program and names bound
+        names, dim, infer, art_batch = detector
+        if art_batch != 1:
+            raise SystemExit(
+                f"--stdin serves one image at a time; the artifact was "
+                f"exported with batch {art_batch} (re-export with --batch 1)")
+        det.bind(names, dim, infer)
+    if det.calib_target > 1 and not det.ready:
         # nothing prints until N paths arrive (or the stream closes): a
         # request/response client that waits for each block would hang
         log.warning(
@@ -359,6 +416,10 @@ def main():
     parser = make_parser(__doc__)
     parser.add_argument("--weights", default="",
                         help=".npz param store or training logdir")
+    parser.add_argument("--artifact", default="",
+                        help="serving artifact from cli/export.py (replaces "
+                             "--weights and the [model] section: program, "
+                             "weights, names and thresholds are baked in)")
     parser.add_argument("--image", action="append", default=[],
                         help="image path (repeatable)")
     parser.add_argument("--out", default="", help="annotated output path/dir")
@@ -366,7 +427,6 @@ def main():
                         help="display the annotated image")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
-    parser.add_argument("--artifact", default="", help="not ported yet")
     parser.add_argument("--stdin", action="store_true",
                         help="serve: read image paths from stdin, one per "
                              "line; weights are loaded once")
@@ -374,20 +434,23 @@ def main():
                         help="not ported yet")
     args = parser.parse_args()
     cfg = setup(args)
-    for flag, on in (("--artifact", args.artifact),
-                     ("--data-parallel", args.data_parallel)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1, config and CLIs)")
+    if args.data_parallel:
+        raise NotImplementedError("--data-parallel is not ported yet "
+                                  "(ROADMAP queue 1, multi-device)")
     if args.stdin and (args.image or args.show):
         parser.error("--stdin is exclusive with --image/--show")
-    if not args.weights:
-        parser.error("--weights is required")
+    if bool(args.weights) == bool(args.artifact):
+        parser.error("exactly one of --weights or --artifact is required")
+    detector = None
+    if args.artifact:
+        detector, meta = load_artifact_detector(args.artifact, args.device)
+        cfg = sync_artifact_cfg(cfg, meta)
     if args.stdin:
-        run_stream(cfg, args.weights, args.out or None, device=args.device)
+        run_stream(cfg, args.weights, args.out or None, device=args.device,
+                   detector=detector)
     elif args.image:
         run_detect(cfg, args.weights, args.image, args.out or None,
-                   args.show, device=args.device)
+                   args.show, device=args.device, detector=detector)
     else:
         parser.error("one of --image or --stdin is required")
 

@@ -8,6 +8,7 @@ Usage:
   python -m yolojax_torch.cli.eval -c config.ini --weights W.npz \\
       [--phase test] [--coco] [--dump out.json] [--max-batches N] \\
       [--device cpu] [section.key=value ...]
+  ... --artifact m.yjts   # score an exported artifact (cli/export.py)
 
 ``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
 directory (``detect.use_ema=1``: its EMA weights).
@@ -15,17 +16,22 @@ directory (``detect.use_ema=1``: its EMA weights).
 stem kernel. Convs run in f32 on the CPU and in bf16 on the card.
 ``detect.use_int8=1`` runs the int8 trunk, calibrated on the phase's first
 ``detect.calib_images`` images (``detect.calib_percentile``,
-``detect.quant_bits``). Not ported yet (they raise NotImplementedError):
-``--artifact``, ``eval.data_parallel=on`` and ``eval.distributed=1``.
+``detect.quant_bits``). ``--artifact`` scores the baked program of an
+exported artifact (its thresholds, top-K, NMS and precision; ``detect.*``
+settings do not apply), exactly as a deployment host runs it. Not ported
+yet (they raise NotImplementedError): ``eval.data_parallel=on`` and
+``eval.distributed=1``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 
+from yolojax_torch.cli.detect import load_artifact_detector, sync_artifact_cfg
 from yolojax_torch.data.cache import load_cache
-from yolojax_torch.eval.evaluator import evaluate_model
+from yolojax_torch.eval.evaluator import EVAL_SCORE_THRESH, evaluate_model
 from yolojax_torch.utils.cli import make_parser, setup
 from yolojax_torch.utils.restore import load_weights
 
@@ -34,7 +40,10 @@ def main():
     parser = make_parser(__doc__)
     parser.add_argument("--weights", default="",
                         help=".npz param store or training logdir")
-    parser.add_argument("--artifact", default="", help="not ported yet")
+    parser.add_argument("--artifact", default="",
+                        help="score a serving artifact (cli/export.py) "
+                             "instead of live weights: its baked program is "
+                             "what gets mAP'd")
     parser.add_argument("--phase", default="test")
     parser.add_argument("--max-batches", type=int, default=0)
     parser.add_argument("--coco", action="store_true",
@@ -48,41 +57,62 @@ def main():
                         help="torch device (default: the CUDA card)")
     args = parser.parse_args()
     cfg = setup(args)
-    if args.artifact:
-        raise NotImplementedError("--artifact is not ported yet (ROADMAP "
-                                  "queue 1, serving daemon and export)")
-    if not args.weights:
-        parser.error("--weights is required")
+    if bool(args.weights) == bool(args.artifact):
+        parser.error("exactly one of --weights or --artifact is required")
 
-    model = cfg.build_model()
-    names = cfg.names()
     cache = load_cache(cfg.cache.basedir, args.phase)
-    metrics = evaluate_model(
-        model, load_weights(args.weights, model, use_ema=cfg.detect.use_ema),
-        cache,
-        input_dim=cfg.model.dim,
-        batch_size=cfg.eval.batch_size,
-        nms_iou=cfg.detect.nms_iou,
-        top_k=cfg.detect.top_k,
+    # shared verbatim by both branches: a drift between them would skew
+    # the live-vs-artifact metric parity the artifact mode exists to show
+    shared = dict(
         map_iou=cfg.eval.map_iou,
-        use_pallas=cfg.detect.use_pallas,
-        candidates=cfg.detect.candidates,
         max_batches=args.max_batches or None,
-        stretch=cfg.detect.stretch,
-        fuse_stem_impl=cfg.detect.fuse_stem,
-        bn_eps=cfg.model.bn_eps,
         max_detections=cfg.eval.max_detections,
         coco=args.coco,
         dump_path=args.dump or None,
-        class_names=names,
-        device=args.device,
-        int8=cfg.detect.use_int8,
-        calib_images=cfg.detect.calib_images,
-        calib_percentile=cfg.detect.calib_percentile,
-        quant_bits=cfg.detect.quant_bits,
-        data_parallel=cfg.eval.data_parallel_flag(),
-        distributed=cfg.eval.distributed,
     )
+    if args.artifact:  # the artifact owns its device: no eval.data_parallel
+        (names, dim, infer_art, fixed_batch), meta = load_artifact_detector(
+            args.artifact, args.device)
+        cfg = sync_artifact_cfg(cfg, meta)
+        baked = float(meta.get("threshold", EVAL_SCORE_THRESH))
+        if baked > EVAL_SCORE_THRESH:
+            # PR curves need the low-confidence tail: say why the mAP is
+            # not comparable to a --weights eval
+            logging.getLogger("eval").warning(
+                "artifact bakes detect.threshold=%g > the eval protocol's "
+                "%g: mAP/AR will undercount the PR tail; export with "
+                "detect.threshold=%g for metrics comparable to --weights "
+                "eval", baked, EVAL_SCORE_THRESH, EVAL_SCORE_THRESH)
+        metrics = evaluate_model(
+            None, None, cache, input_dim=dim, batch_size=fixed_batch,
+            stretch=cfg.detect.stretch, class_names=names,
+            infer_override=infer_art, fixed_batch=fixed_batch,
+            num_classes=len(names), **shared)
+    else:
+        model = cfg.build_model()
+        names = cfg.names()
+        metrics = evaluate_model(
+            model,
+            load_weights(args.weights, model, use_ema=cfg.detect.use_ema),
+            cache,
+            input_dim=cfg.model.dim,
+            batch_size=cfg.eval.batch_size,
+            nms_iou=cfg.detect.nms_iou,
+            top_k=cfg.detect.top_k,
+            use_pallas=cfg.detect.use_pallas,
+            candidates=cfg.detect.candidates,
+            stretch=cfg.detect.stretch,
+            fuse_stem_impl=cfg.detect.fuse_stem,
+            class_names=names,
+            device=args.device,
+            int8=cfg.detect.use_int8,
+            calib_images=cfg.detect.calib_images,
+            calib_percentile=cfg.detect.calib_percentile,
+            quant_bits=cfg.detect.quant_bits,
+            data_parallel=cfg.eval.data_parallel_flag(),
+            distributed=cfg.eval.distributed,
+            **shared,
+        )
     for c, name in enumerate(names):
         if f"ap_{c}" in metrics:
             print(f"AP {name:>16s}: {metrics[f'ap_{c}']:.4f}")

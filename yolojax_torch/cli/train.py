@@ -219,7 +219,6 @@ def train(cfg, *, device=None, init_weights: str = "", transfer: str = ""):
                         candidates=cfg.detect.candidates,
                         fuse_stem_impl=cfg.detect.fuse_stem,
                         compute_dtype=compute_dtype,
-                        bn_eps=cfg.model.bn_eps,
                         max_detections=cfg.eval.max_detections,
                         data_parallel=cfg.eval.data_parallel_flag(),
                         device=device,

@@ -194,7 +194,12 @@ class Loader:
 def read_ppm(path: str) -> np.ndarray:
     """Decode a binary 8-bit PPM (P6, maxval 255) file to RGB uint8 HWC."""
     with open(path, "rb") as f:
-        data = f.read()
+        return parse_ppm(f.read(), path)
+
+
+def parse_ppm(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """The bytes of a binary 8-bit PPM (P6, maxval 255) -> RGB uint8 HWC;
+    ValueError when they are not one."""
     fields, pos = [], 2  # after the magic "P6"
     while len(fields) < 3:  # width, height, maxval; '#' comments between
         while pos < len(data) and data[pos:pos + 1].isspace():
@@ -246,4 +251,24 @@ def decode_image(path: str) -> np.ndarray:
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
         raise FileNotFoundError(path)
+    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """Decode an encoded image (a request body) to RGB uint8 HWC: 8-bit
+    binary PPM with numpy, any other format with ``cv2``. Raises
+    ValueError when the bytes do not decode."""
+    if data[:2] == b"P6":
+        try:
+            return parse_ppm(data)
+        except ValueError:
+            pass  # a PPM variant the numpy reader does not take: cv2
+    try:
+        import cv2
+    except ImportError:
+        raise ValueError("undecodable image: only 8-bit binary PPM (P6) is "
+                         "read without cv2") from None
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError("undecodable image")
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)

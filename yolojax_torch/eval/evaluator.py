@@ -7,8 +7,9 @@ runs there (the fused-stem and NMS kernels on the card), and only the
 fixed-shape outputs come back; the host un-pads them into detection lists
 and scores them with ``eval/voc_map.py``. With ``int8`` the trunk runs
 quantized (``quantize/ptq.py``), calibrated on the phase's first images.
-AOT artifacts (``infer_override``/``fixed_batch``), data-parallel and
-multi-host eval raise :class:`NotImplementedError`.
+``infer_override`` scores an exported artifact's program instead
+(``fixed_batch``: its baked batch). Data-parallel and multi-host eval raise
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -55,10 +56,12 @@ def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
 
     ``qm``: a :class:`QuantizedModel` on the images' device; the int8
     trunk (``apply_int8``) then runs instead of the forward, and ``net``
-    is not read."""
+    is not read. ``infer`` runs in inference mode; ``infer.forward(net,
+    images, qm=qm)`` is the same program outside it, for ``torch.export``
+    (``yolojax_torch/serve``), and ``infer.qm`` is ``qm``."""
 
-    @torch.inference_mode()
-    def infer(net: Network, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(net: Network, images: torch.Tensor,
+                qm: Optional[QuantizedModel] = qm) -> Dict[str, torch.Tensor]:
         if qm is not None:
             head = apply_int8(qm, images)
         else:
@@ -75,6 +78,8 @@ def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
             use_pallas=use_pallas, candidates=candidates,
         )
 
+    infer = torch.inference_mode()(forward)
+    infer.forward, infer.qm = forward, qm
     return infer
 
 
@@ -138,21 +143,67 @@ def _dump_coco_json(path, detections, ground_truth, num_images,
              len(results), path)
 
 
-def _refuse_unported(data_parallel, distributed, infer_override,
-                     fixed_batch) -> None:
+def _refuse_unported(data_parallel, distributed) -> None:
     for on, what in (
         (data_parallel, "eval.data_parallel=on: multi-device eval"),
         (distributed, "eval.distributed: multi-host eval"),
-        (infer_override is not None or fixed_batch,
-         "artifact eval (infer_override / fixed_batch): AOT artifacts"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def _eval_loader(cache, batch_size: int, input_dim: int,
+                 stretch: bool) -> Loader:
+    return Loader(cache, LoaderConfig(
+        batch_size=batch_size, canvas_dim=input_dim, max_boxes=64,
+        stretch=stretch, drop_remainder=False, num_threads=8))
+
+
+def _live_program(model, net, cache, device, *, input_dim, batch_size,
+                  stretch, fold, fuse_stem_impl, int8, calib_images,
+                  calib_percentile, quant_bits, compute_dtype, score_thresh,
+                  nms_iou, top_k, use_pallas, candidates):
+    """The serving program of ``evaluate_model``'s settings on a copy of
+    ``net``: canvases (numpy) -> dict of numpy arrays."""
+    device = resolve_device(device)
+    if compute_dtype is None:
+        compute_dtype = (torch.float32 if device.type == "cpu"
+                         else torch.bfloat16)
+    net = copy.deepcopy(net)
+    if fold or int8:
+        model, net = fold_bn(model, net)  # at 1e-5, as yolojax folds
+        if not int8:  # int8 quantizes the trunk itself
+            model, net = fuse_stem(model, net, impl=fuse_stem_impl)
+    qm = None
+    if int8:
+        net = net.to(device).requires_grad_(False).eval()  # f32: quantized
+        want = max(calib_images, 1)
+        chunks = []
+        for imgs, _, _, _ in _eval_loader(cache, batch_size, input_dim,
+                                          stretch).epoch(0, shuffle=False):
+            chunks.append(imgs)
+            if sum(c.shape[0] for c in chunks) >= want:
+                break
+        calib = torch.from_numpy(np.concatenate(chunks)[:want]).to(device)
+        qm = quantize_model(model, net, calib, percentile=calib_percentile,
+                            bits=quant_bits)
+    else:
+        net = serving_weights(net, device, compute_dtype)
+    infer = make_infer_fn(model, score_thresh=score_thresh,
+                          iou_thresh=nms_iou, top_k=top_k,
+                          use_pallas=use_pallas, candidates=candidates,
+                          compute_dtype=compute_dtype, qm=qm)
+
+    def run(images: np.ndarray) -> Dict[str, np.ndarray]:
+        x = torch.from_numpy(images).to(device)
+        return {k: v.cpu().numpy() for k, v in infer(net, x).items()}
+
+    return run
+
+
 def evaluate_model(
-    model: Model,
-    net: Network,
+    model: Optional[Model],
+    net: Optional[Network],
     cache,
     *,
     input_dim: int,
@@ -168,7 +219,6 @@ def evaluate_model(
     stretch: bool = False,
     fold: bool = True,
     fuse_stem_impl: str = "off",
-    bn_eps: float = 1e-5,
     max_detections: int = 0,  # cap kept detections per image (0 = no cap)
     coco: bool = False,  # add COCO-style AP@[.50:.95] + size bins
     dump_path: Optional[str] = None,  # write COCO-format GT+results JSON
@@ -180,8 +230,9 @@ def evaluate_model(
     quant_bits: int = 8,  # int8 code width (detect.quant_bits; <8 coarsens)
     data_parallel: Optional[bool] = None,  # None/False: the one device
     distributed: bool = False,
-    infer_override=None,
-    fixed_batch: Optional[int] = None,
+    infer_override=None,  # callable(canvases) -> dict of numpy arrays
+    fixed_batch: Optional[int] = None,  # the artifact's batch (pad to it)
+    num_classes: Optional[int] = None,  # required when model is None
 ) -> Dict[str, float]:
     """Run detection over a cached phase and return VOC (and with
     ``coco``, COCO) metrics plus ``num_images`` and ``num_detections``.
@@ -190,41 +241,28 @@ def evaluate_model(
 
     ``int8`` folds BN, fuses no stem, and quantizes the network on the
     first ``calib_images`` canvases of the phase (in cache order), as
-    yolojax does."""
-    _refuse_unported(data_parallel, distributed, infer_override, fixed_batch)
-    device = resolve_device(device)
-    if compute_dtype is None:
-        compute_dtype = (torch.float32 if device.type == "cpu"
-                         else torch.bfloat16)
-    net = copy.deepcopy(net)
-    if fold or int8:
-        model, net = fold_bn(model, net, eps=bn_eps)
-        if not int8:  # int8 quantizes the trunk itself
-            model, net = fuse_stem(model, net, impl=fuse_stem_impl)
-    loader = Loader(
-        cache,
-        LoaderConfig(batch_size=batch_size, canvas_dim=input_dim,
-                     max_boxes=64, stretch=stretch, drop_remainder=False,
-                     num_threads=8),
-    )
-    qm = None
-    if int8:
-        net = net.to(device).requires_grad_(False).eval()  # f32: quantized
-        want = max(calib_images, 1)
-        chunks = []
-        for imgs, _, _, _ in loader.epoch(0, shuffle=False):
-            chunks.append(imgs)
-            if sum(c.shape[0] for c in chunks) >= want:
-                break
-        calib = torch.from_numpy(np.concatenate(chunks)[:want]).to(device)
-        qm = quantize_model(model, net, calib, percentile=calib_percentile,
-                            bits=quant_bits)
+    yolojax does. ``infer_override`` (an exported artifact's program, see
+    ``cli/detect.py::load_artifact_detector``) replaces the model: its
+    thresholds, top-K, NMS and precision are baked, ``model`` and ``net``
+    may be None, and each batch is padded to ``fixed_batch``."""
+    _refuse_unported(data_parallel, distributed)
+    n_cls = model.num_classes if model is not None else num_classes
+    if n_cls is None:
+        raise ValueError("num_classes is required when model is None")
+    if infer_override is not None:
+        if fixed_batch:
+            batch_size = fixed_batch  # loader batches must match the program
+        run = infer_override
     else:
-        net = serving_weights(net, device, compute_dtype)
-    infer = make_infer_fn(model, score_thresh=score_thresh,
-                          iou_thresh=nms_iou, top_k=top_k,
-                          use_pallas=use_pallas, candidates=candidates,
-                          compute_dtype=compute_dtype, qm=qm)
+        run = _live_program(
+            model, net, cache, device, input_dim=input_dim,
+            batch_size=batch_size, stretch=stretch, fold=fold,
+            fuse_stem_impl=fuse_stem_impl, int8=int8,
+            calib_images=calib_images, calib_percentile=calib_percentile,
+            quant_bits=quant_bits, compute_dtype=compute_dtype,
+            score_thresh=score_thresh, nms_iou=nms_iou, top_k=top_k,
+            use_pallas=use_pallas, candidates=candidates)
+    loader = _eval_loader(cache, batch_size, input_dim, stretch)
 
     detections = []
     ground_truth = []
@@ -234,8 +272,13 @@ def evaluate_model(
             loader.epoch(0, shuffle=False)):
         if max_batches is not None and bi >= max_batches:
             break
-        x = torch.from_numpy(images).to(device)
-        out = {k: v.cpu().numpy() for k, v in infer(net, x).items()}
+        n_actual = images.shape[0]
+        if fixed_batch and n_actual < fixed_batch:
+            # a short last batch: pad to the program's shape, drop the extras
+            images = np.concatenate([images, np.zeros(
+                (fixed_batch - n_actual,) + images.shape[1:], images.dtype)])
+        out = {k: v[:n_actual] for k, v in run(images).items()}
+        images = images[:n_actual]
         # GT is already in canvas coords, consistent with detections; the
         # row-major nonzero keeps the (image, slot) order
         for k, g in zip(*(a.tolist() for a in np.nonzero(valid))):
@@ -278,15 +321,14 @@ def evaluate_model(
              img_id, len(detections), len(ground_truth))
     if dump_path:
         _dump_coco_json(dump_path, detections, ground_truth, img_id,
-                        model.num_classes, float(input_dim), class_names,
+                        n_cls, float(input_dim), class_names,
                         gt_difficult=gt_difficult)
-    metrics = compute_map(detections, ground_truth, model.num_classes,
+    metrics = compute_map(detections, ground_truth, n_cls,
                           iou_thresh=map_iou, gt_difficult=gt_difficult)
     if coco:
         # boxes are canvas-normalized; scale areas to canvas pixels so the
         # COCO small/medium/large bins mean what they do in COCO
-        metrics.update(compute_coco_map(detections, ground_truth,
-                                        model.num_classes,
+        metrics.update(compute_coco_map(detections, ground_truth, n_cls,
                                         box_scale=float(input_dim),
                                         gt_ignore=gt_difficult))
     metrics["num_images"] = img_id

@@ -8,7 +8,9 @@ arrives through an asynchronous ring, so the arithmetic stays under the
 memory time. It sums in another order than the plain version and is held
 to it within :func:`yolojax_torch.nn.stem.stem_tolerance`.
 
-For a CUDA tensor :func:`stem_fused_cuda` launches the kernel and raises
+:func:`stem_fused_cuda` checks its arguments and calls the custom
+operator ``yolojax_torch::stem_fused`` (``kernels/ops.py``): for a CUDA
+tensor the operator launches the kernel through :func:`launch` and raises
 on what it does not take; for a CPU tensor it runs the plain version
 (:func:`yolojax_torch.nn.stem.stem_fused_torch`). There is no fallback
 from one to the other.
@@ -22,12 +24,8 @@ from typing import Optional
 
 import torch
 
-from yolojax_torch.kernels import build
-from yolojax_torch.nn.stem import (
-    stem_fused_torch,
-    stem_mma_operand,
-    unpack_stem_kernel,
-)
+from yolojax_torch.kernels import build, ops
+from yolojax_torch.nn.stem import stem_mma_operand, unpack_stem_kernel
 
 CO = 32  # the kernel's output channels (Darknet-19's and the tiny nets' conv0)
 NVCC_FLAGS = ()  # the sum runs on the tensor cores: -fmad changes nothing
@@ -55,11 +53,18 @@ def stem_fused_cuda(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor, *,
     (:func:`yolojax_torch.nn.stem.stem_mma_operand`) when the caller has it
     (:class:`yolojax_torch.nn.layers.StemLayer` keeps it), else it is made
     from ``wp``."""
-    if x.device.type == "cpu":
-        return stem_fused_torch(x, wp, b)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_fused_cuda: x on {x.device}; want a CUDA "
                          "device (or the CPU for the plain version)")
+    # the operator takes conv0's kernel in the layout of x's device
+    w = wp if x.device.type == "cpu" else _kernel_operand(x, wp, b, wfrag)
+    return ops.stem_fused(x, w, b)
+
+
+def _kernel_operand(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+                    wfrag: Optional[torch.Tensor]) -> torch.Tensor:
+    """Check the arguments against what the kernel takes and return its B
+    operand ``wfrag``."""
     if x.dtype != torch.float32:
         raise ValueError(f"stem_fused_cuda: x must be float32, got {x.dtype}")
     if x.dim() != 4 or x.shape[3] != 3:
@@ -86,13 +91,21 @@ def stem_fused_cuda(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor, *,
                              f"{x.device}, got {t.device}")
     if b.dtype != torch.float32:
         raise ValueError(f"stem_fused_cuda: b must be float32, got {b.dtype}")
+    return wfrag
+
+
+def launch(x: torch.Tensor, wfrag: torch.Tensor,
+           b: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on tensors :func:`stem_fused_cuda` has checked
+    (the CUDA implementation of ``yolojax_torch::stem_fused``)."""
+    n, h, w, _ = x.shape
     out = torch.empty((n, h // 2, w // 2, CO), dtype=torch.bfloat16,
                       device=x.device)
-    launch, err = _launcher()
+    run, err = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = launch(x.data_ptr(), wfrag.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    n, h, w, stream)
+        rc = run(x.data_ptr(), wfrag.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 n, h, w, stream)
     if rc != 0:
         raise RuntimeError(f"stem_fused_launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")

@@ -1,6 +1,5 @@
-"""int8 post-training quantization (``quantize/ptq.py``). Quantization-aware
-training (yolojax's ``quantize/qat.py``) is not ported yet (ROADMAP queue 1,
-item 9)."""
+"""int8 post-training quantization (``quantize/ptq.py``) and
+quantization-aware fine-tuning (``quantize/qat.py``)."""
 
 from yolojax_torch.quantize.ptq import (  # noqa: F401
     QuantizedModel,

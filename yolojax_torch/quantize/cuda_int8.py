@@ -6,7 +6,9 @@ phase max of the fused int8 stem ``ptq.py:319-325``): int32 sums in, int8
 codes out, in one pass. The kernel is bound by bytes (see the note at the
 top of the source).
 
-For a CUDA tensor :func:`int8_requant_cuda` launches the kernel and raises
+:func:`int8_requant_cuda` checks its arguments and calls the custom
+operator ``yolojax_torch::int8_requant`` (``kernels/ops.py``): for a CUDA
+tensor the operator launches the kernel through :func:`launch` and raises
 on what it does not take; for a CPU tensor it runs the plain version
 (:func:`yolojax_torch.quantize.int8_ops.int8_requant_torch`). There is no
 fallback from one to the other.
@@ -19,8 +21,7 @@ import functools
 
 import torch
 
-from yolojax_torch.kernels import build
-from yolojax_torch.quantize.int8_ops import int8_requant_torch
+from yolojax_torch.kernels import build, ops
 
 PHASES = (1, 4)  # a plain epilogue, or the int8 stem's max over 4 phases
 # every step is a round-to-nearest intrinsic: nothing left to contract
@@ -49,11 +50,18 @@ def int8_requant_cuda(acc: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
     (a column slice of a wider product is taken as it is); m, b
     (phases*C,) f32 contiguous; ``r`` = f32(1) / f32(scale) -> (M, C) int8
     codes (see :func:`int8_requant_torch` for the recipe)."""
-    if acc.device.type == "cpu":
-        return int8_requant_torch(acc, m, b, r, qmax, leaky, phases)
-    if acc.device.type != "cuda":
+    if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_requant_cuda: acc on {acc.device}; want a "
                          "CUDA device (or the CPU for the plain version)")
+    if acc.device.type == "cuda":  # the kernel's own limits
+        _check(acc, m, b, qmax, phases)
+    return ops.int8_requant(acc, m, b, float(r), int(qmax), bool(leaky),
+                            int(phases))
+
+
+def _check(acc: torch.Tensor, m: torch.Tensor, b: torch.Tensor, qmax: int,
+           phases: int) -> None:
+    """Raise on what the kernel does not take."""
     if phases not in PHASES:
         raise ValueError(f"int8_requant_cuda: phases must be one of {PHASES}, "
                          f"got {phases}")
@@ -75,16 +83,23 @@ def int8_requant_cuda(acc: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if not 0 < qmax <= 127:
         raise ValueError(f"int8_requant_cuda: qmax {qmax} outside (0, 127]")
+
+
+def launch(acc: torch.Tensor, m: torch.Tensor, b: torch.Tensor, r: float,
+           qmax: int, leaky: bool, phases: int) -> torch.Tensor:
+    """Launch the kernel on tensors :func:`int8_requant_cuda` has checked
+    (the CUDA implementation of ``yolojax_torch::int8_requant``)."""
+    rows, cols = acc.shape
     channels = cols // phases
     out = torch.empty((rows, channels), dtype=torch.int8, device=acc.device)
     if rows == 0 or channels == 0:
         return out
-    launch, err = _launcher()
+    run, err = _launcher()
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
-        rc = launch(acc.data_ptr(), acc.stride(0), m.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), rows, channels, phases, float(r),
-                    int(qmax), int(bool(leaky)), stream)
+        rc = run(acc.data_ptr(), acc.stride(0), m.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), rows, channels, phases, float(r),
+                 int(qmax), int(bool(leaky)), stream)
     if rc != 0:
         raise RuntimeError(f"int8_requant_launch failed: CUDA error {rc} "
                            f"({err(rc).decode()})")

@@ -7,6 +7,7 @@ present they raise: they never carry on quietly on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -20,3 +21,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Convs and matrix products in true f32 inside (TF32 off: cuDNN runs f32
+    convs in TF32 by default), the previous settings restored on exit. The
+    flags are process-wide."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
