@@ -53,11 +53,22 @@ Phases, each of which raises on failure:
    ``cli.serve --artifact`` answering 32 concurrent requests as
    ``cli.detect --artifact`` does; ``cli.detect --artifact --stdin`` and
    ``cli.eval --artifact``; the QAT and distill step times at b64@416;
-9. time the paths and the kernels on the card (the NMS kernel's build and
+9. drive the converters and host tools: ``model_from_cfg`` on Darknet's
+   yolo-voc.cfg against the registry's Darknet-19; adam on the card
+   against the CPU bit for bit; the seeded weights written as Darknet
+   ``.weights`` and read back by ``python -m yolojax_torch parse-darknet
+   --cfg`` into an ``.npz`` equal to the seeded one; ``cli.detect
+   --weights x.weights`` printing what the ``.npz`` run prints; the
+   camera loop of ``cli.detect_camera`` (bf16, and int8 calibrating on its
+   first two frames) equal to ``cli.detect --stdin`` on the same frames;
+   ``cli.kmeans_anchors`` on the train cache and the augmentation grid on
+   the card;
+10. time the paths and the kernels on the card (the NMS kernel's build and
    sweep phases also apart; the b128 int8 batch beside the bf16 ones, with
    every requant launch of it held against the plain version on its own
-   sums; the b64@416 train step), and check that the fused-stem batch
-   beats the unfused one.
+   sums; the b64@416 train step), check that the fused-stem batch beats
+   the unfused one, and print the MFU of the timed programs over the
+   H100's peaks (``utils/flops.py``).
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -84,12 +95,16 @@ from unittest import mock
 import numpy as np
 import torch
 
+import yolojax_torch.__main__ as dispatcher
 from yolojax_torch.cli import cache as cache_cli
 from yolojax_torch.cli import detect as detect_cli
 from yolojax_torch.cli import eval as eval_cli
 from yolojax_torch.cli import export as export_cli
+from yolojax_torch.cli import kmeans_anchors as kmeans_cli
 from yolojax_torch.cli import qat as qat_cli
 from yolojax_torch.cli import train as train_cli
+from yolojax_torch.cli.demo_data_augmentation import render_grid
+from yolojax_torch.cli.detect_camera import camera_loop
 from yolojax_torch.cli.detect import (
     build_detector,
     build_serving,
@@ -98,6 +113,8 @@ from yolojax_torch.cli.detect import (
 )
 from yolojax_torch.cli.serve import build_server
 from yolojax_torch.config import load_config
+from yolojax_torch.convert.cfg import model_from_cfg
+from yolojax_torch.convert.darknet import save_darknet_weights
 from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.convert.store import load_network_npz, save_network_npz
 from yolojax_torch.data import augment
@@ -116,6 +133,7 @@ from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import (
     ConvSpec,
     MaxPoolSpec,
+    RouteSpec,
     _darknet_padding,
     conv2d,
     leaky_relu,
@@ -148,6 +166,7 @@ from yolojax_torch.quantize.int8_ops import (
 from yolojax_torch.serve import load_artifact
 from yolojax_torch.train import step as train_step
 from yolojax_torch.train.checkpoint import Checkpointer
+from yolojax_torch.utils import flops
 from yolojax_torch.utils.device import full_f32
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -231,6 +250,9 @@ QAT_LOSS_RTOL, QAT_GRAD_RTOL, QAT_DELTA_RTOL = 1e-5, 1e-4, 1e-2
 GATE_SEEDS = 4
 QAT_PATHS = ("qat_eval", "artifact_bf16", "artifact_int8", "serve",
              "artifact_stdin")
+# phase 10: converters and tools. The camera loop's frames (two sizes)
+CAMERA_FRAMES = 6
+TOOL_PATHS = ("weights_detect", "camera", "camera_int8")
 
 
 def check(cond: bool, what: str) -> None:
@@ -1125,11 +1147,11 @@ def check_auto_launches(npz: str, device) -> None:
     check(stem_fused_cuda.launches == 1, "fuse_stem=auto runs the kernel")
 
 
-def time_fusion(progs: dict, canvases, card: str) -> None:
+def time_fusion(progs: dict, canvases, card: str) -> dict:
     """The device-resident batch through each serving program in turns
     (bf16 unfused and fused stem, int8 with the stem off and packed, then
     back), with peak device memory; then the profile of one fused bf16 and
-    one int8 batch."""
+    one int8 batch. Returns {program: [ms of each turn]}."""
     batch, dim = canvases.shape[0], canvases.shape[1]
     turns = ("off", "pallas", "int8-off", "int8-xla")
     times = {fuse: [] for fuse in progs}
@@ -1159,6 +1181,7 @@ def time_fusion(progs: dict, canvases, card: str) -> None:
         if fuse in progs:
             infer_fn, net = progs[fuse]
             profile_batch(lambda: infer_fn(net, canvases), f"{card}, {label}")
+    return times
 
 
 def stem_bound_ms(x: torch.Tensor, stem_layer) -> tuple:
@@ -2296,6 +2319,236 @@ def time_qat_steps(cfg, npz: str, device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: converters and tools
+# ---------------------------------------------------------------------------
+
+
+def repo_cfg_text(name: str) -> str:
+    """A Darknet cfg kept as the string ``name`` in
+    tests/parity/test_cfg.py, read with ``ast`` (that module imports jax)."""
+    import ast
+
+    with open(os.path.join(ROOT, "tests", "parity", "test_cfg.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise RuntimeError(f"chip_smoke: no {name} in tests/parity/test_cfg.py")
+
+
+def check_cfg_specs(tmp: str) -> str:
+    """``model_from_cfg`` on Darknet's yolo-voc.cfg gives the registry's
+    Darknet-19 specs, routes as absolute indices. Returns the cfg path."""
+    path = os.path.join(tmp, "yolo-voc.cfg")
+    with open(path, "w") as f:
+        f.write(repo_cfg_text("YOLO_VOC_CFG"))
+    got = model_from_cfg(path)
+    ref = get_model("yolo2", "darknet", 20)
+    absolute = tuple(
+        RouteSpec(tuple(r if r >= 0 else i + r for r in s.layers))
+        if isinstance(s, RouteSpec) else s for i, s in enumerate(ref.specs))
+    print(f"phase converters and tools: yolo-voc.cfg -> {len(got.specs)} "
+          f"specs, {got.num_anchors} anchors, downsample {got.downsample}; "
+          f"equal to yolo2.darknet: {got.specs == absolute}", flush=True)
+    check(got.specs == absolute and got.anchors == ref.anchors
+          and got.downsample == ref.downsample and got.num_classes == 20,
+          "yolo-voc.cfg parses to the registry's Darknet-19")
+    return path
+
+
+def check_adam_card_vs_cpu(device) -> None:
+    """Adam (no clip) on the card and on the CPU, from the same grads for
+    20 updates: the updates bit for bit (f32 bias corrections divided as
+    device tensors, correctly rounded square roots); the CPU's are
+    optax's bit for bit (tests/test_torch_qat.py)."""
+    tx = train_step.make_optimizer(train_step.OptimizerConfig(
+        optimizer="adam", learning_rate=1e-3, weight_decay=0.0))
+    gen = torch.Generator().manual_seed(SEED + 11)
+    p = {"w": torch.randn(4096, generator=gen)}
+    states = {"cpu": tx.init(p), "card": tx.init({"w": p["w"].to(device)})}
+    unequal = 0
+    for step in range(20):
+        g = torch.randn(4096, generator=gen) * (0.01 if step % 2 else 3.0)
+        u_cpu, states["cpu"] = tx.update({"w": g}, states["cpu"], p)
+        u_dev, states["card"] = tx.update({"w": g.to(device)},
+                                          states["card"],
+                                          {"w": p["w"].to(device)})
+        unequal += int((u_dev["w"].cpu() != u_cpu["w"]).sum())
+    print(f"  adam on {device.type} vs CPU, 20 updates of 4096 values: "
+          f"{unequal} not bit-equal", flush=True)
+    check(unequal == 0, "adam's updates on the card == CPU bit for bit")
+
+
+def dispatch(argv: list) -> str:
+    """``python -m yolojax_torch argv...`` in this process; returns what
+    it printed."""
+    saved = sys.argv
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            check(dispatcher.main(argv) == 0, f"python -m yolojax_torch "
+                                               f"{argv[0]} exits 0")
+    finally:
+        sys.argv = saved
+    return out.getvalue()
+
+
+def drive_converters(cfg, npz: str, cfg_path: str, tmp: str,
+                     card: str) -> str:
+    """The seeded weights written as Darknet ``.weights`` by the port's
+    ``save_darknet_weights``, then ``python -m yolojax_torch parse-darknet
+    --cfg yolo-voc.cfg`` back to an ``.npz`` whose every array must equal
+    the seeded ``.npz``'s. Returns the ``.weights`` path."""
+    model = cfg.build_model()
+    weights = os.path.join(tmp, "darknet19_seed0.weights")
+    t0 = time.perf_counter()
+    save_darknet_weights(model, load_network_npz(npz, model), weights)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(tmp, "parsed.npz")
+    t0 = time.perf_counter()
+    printed = dispatch(["parse-darknet", "-c", "config.ini", "--cfg",
+                        cfg_path, weights, "-o", out])
+    parse_s = time.perf_counter() - t0
+    with np.load(out) as got, np.load(npz) as want:
+        same = (sorted(got.files) == sorted(want.files) and all(
+            got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+            for k in want.files))
+        n_arrays = len(want.files)
+    print(f"  [{card}] save_darknet_weights: "
+          f"{os.path.getsize(weights) / 1e6:.1f} MB in {write_s:.2f} s; "
+          f"python -m yolojax_torch parse-darknet --cfg yolo-voc.cfg: "
+          f"{parse_s:.2f} s: {printed.strip()}", flush=True)
+    print(f"  parsed .npz vs the seeded .npz: {n_arrays} arrays, all "
+          f"bit-equal: {same}", flush=True)
+    check(same, "parse-darknet's .npz == the seeded .npz, array by array")
+    return weights
+
+
+def drive_weights_detect(npz: str, weights: str, tmp: str, device,
+                         overrides=()) -> dict:
+    """``cli.detect --weights x.weights detect.fuse_stem=pallas`` on the
+    four images prints what ``--weights seeded.npz`` prints; counts the
+    ``.weights`` run's launches."""
+    paths = write_ppms(synthetic_images(np.random.RandomState(SEED)),
+                       os.path.join(tmp, "weights_images"))
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    printed, launches = {}, {}
+    for name, w in (("npz", npz), ("weights", weights)):
+        argv = ["-c", "config.ini", "--weights", w, *cpu]
+        for p in paths:
+            argv += ["--image", p]
+        argv += ["detect.threshold=0.005", "detect.fuse_stem=pallas",
+                 *overrides]
+
+        def run(argv=argv, name=name):
+            printed[name] = run_cli(detect_cli, argv)[1]
+
+        launches[name] = count_launches(run)
+    lines = printed["weights"].splitlines()
+    print(f"  cli.detect --weights x.weights detect.fuse_stem=pallas: "
+          f"{len(lines)} detections on {len(paths)} images, equal to "
+          f"--weights seeded.npz: {printed['weights'] == printed['npz']}; "
+          f"launches {launches['weights']}", flush=True)
+    check(len(lines) > 0 and printed["weights"] == printed["npz"],
+          "cli.detect on the .weights file == on the .npz")
+    return launches["weights"]
+
+
+def camera_frames() -> list:
+    """Seeded RGB frames of two camera sizes."""
+    rng = np.random.RandomState(SEED + 9)
+    frames = []
+    for i in range(CAMERA_FRAMES):
+        h, w = (480, 640) if i % 2 == 0 else (360, 480)
+        yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+        phase = rng.uniform(0, 3)
+        base = np.stack([np.sin(5 * xx + c + phase) * np.cos(3 * yy - c)
+                         for c in (0.0, 1.0, 2.0)], -1)
+        img = 127.5 * (1 + base) + rng.normal(0, 12, (h, w, 3))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def drive_camera(npz: str, tmp: str, device, int8: bool,
+                 overrides=()) -> dict:
+    """``cli.detect_camera``'s loop over the seeded frames (int8:
+    ``detect.calib_images=2``, buffered as the camera buffers them); each
+    frame's detections must equal ``cli.detect --stdin`` on the same
+    frames as PPM files. Counts the loop's launches."""
+    overrides = ["detect.threshold=0.005", *overrides] + (
+        ["detect.use_int8=1", "detect.calib_images=2"] if int8 else [])
+    cfg = load_config(["config.ini"], overrides)
+    frames = camera_frames()
+    paths = write_ppms(frames, os.path.join(
+        tmp, "camera_int8" if int8 else "camera"))
+    names = [os.path.basename(p) for p in paths]
+    lines = []
+
+    def sink(n, frame, dets):
+        for name, _, score, (x0, y0, x1, y1) in dets:
+            lines.append(f"{names[n - 1]}: {name} {score:.3f} "
+                         f"[{x0:.0f}, {y0:.0f}, {x1:.0f}, {y1:.0f}]")
+        lines.append("")
+        return False
+
+    served = []
+    launches = count_launches(lambda: served.append(camera_loop(
+        cfg, npz, iter(frames), sink, device=device)))
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    saved = sys.stdin
+    sys.stdin = io.StringIO("\n".join(paths) + "\n")
+    try:
+        stdin_out = run_cli(detect_cli, ["-c", "config.ini", "--weights",
+                                         npz, "--stdin", *cpu,
+                                         *overrides])[1]
+    finally:
+        sys.stdin = saved
+    camera_out = "\n".join(lines) + "\n"
+    label = "int8" if int8 else "bf16"
+    print(f"  camera loop ({label}) over {served[0]} frames "
+          f"({frames[0].shape[1]}x{frames[0].shape[0]} and "
+          f"{frames[1].shape[1]}x{frames[1].shape[0]}): "
+          f"{len(lines) - served[0]} detections, equal to cli.detect "
+          f"--stdin: {camera_out == stdin_out}; launches {launches}",
+          flush=True)
+    check(served[0] == CAMERA_FRAMES and camera_out == stdin_out,
+          f"the {label} camera loop == cli.detect --stdin")
+    return launches
+
+
+def drive_host_tools(tr: dict, device, overrides=()) -> None:
+    """``cli.kmeans_anchors`` on the train path's cache, and the
+    augmentation demo's grid rendered on ``device``."""
+    printed = run_cli(kmeans_cli, ["-c", "config.ini",
+                                   f"cache.basedir={tr['cache_dir']}",
+                                   *overrides])[1]
+    lines = printed.splitlines()
+    print(f"  cli.kmeans_anchors on the train cache: {' / '.join(lines)}",
+          flush=True)
+    check(len(lines) == 2 and lines[1].startswith("anchors = ")
+          and len(lines[1].split()) == 2 + 5, "five anchors printed")
+    cfg = load_config(["config.ini"], [f"cache.basedir={tr['cache_dir']}",
+                                       *overrides])
+    t0 = time.perf_counter()
+    grid = render_grid(cfg, 2, 3, SEED, device)
+    dim = cfg.model.dim
+    print(f"  augmentation grid on {device.type}: {grid.shape} uint8, "
+          f"mean {grid.mean():.1f}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check(grid.shape == (2 * dim, 3 * dim, 3) and grid.dtype == np.uint8
+          and grid.any(), "the augmentation grid")
+
+
+def print_mfu(card: str, label: str, images_per_sec: float,
+              flops_per_image: float, peak: float, peak_name: str) -> None:
+    print(f"  [{card}] mfu {label}: "
+          f"{flops.mfu(images_per_sec, flops_per_image, peak):.4f} "
+          f"({images_per_sec:.1f} img/s x {flops_per_image / 1e9:.2f} "
+          f"GFLOP an image over the {peak_name} peak "
+          f"{peak / 1e12:.1f} TFLOP/s)", flush=True)
+
+
 def main() -> int:
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
@@ -2364,14 +2617,15 @@ def main() -> int:
             check_qat_card_vs_cpu(device)
             check_qat_beats_ptq(device)
             qr = drive_qat_cli(npz, tr, ev, tmp, device)
-            time_qat_steps(load_config(["config.ini"]), npz, device, card)
+            qat_times = time_qat_steps(load_config(["config.ini"]), npz,
+                                       device, card)
             ppms = sorted(os.path.join(ev["img_dir"], f)
                           for f in os.listdir(ev["img_dir"]))
             arts = drive_export(npz, qr["outputs"][0], ppms, tmp, device)
             art_run = check_artifacts(arts, ppms, run["canvases"], card)
             served = drive_serve(arts, ppms, device, card)
             art_cli = drive_artifact_clis(arts, ev, ppms, device)
-            return qr, arts, art_run, served, art_cli
+            return qr, arts, art_run, served, art_cli, qat_times
 
         # as users run these entry points: in a process without cuDNN's
         # autotuned plans. Turning autotuning off is not enough: cuDNN's
@@ -2386,7 +2640,7 @@ def main() -> int:
         # b64.
         torch.backends.cudnn.benchmark = False
         with ThreadPoolExecutor(1) as pool:
-            qr, arts, art_run, served, art_cli = pool.submit(
+            qr, arts, art_run, served, art_cli, qat_times = pool.submit(
                 qat_phase).result()
         torch.backends.cudnn.benchmark = True
         print(f"  [{card}] export seconds: " + ", ".join(
@@ -2415,6 +2669,22 @@ def main() -> int:
                           "int8_requant": requant},
                   f"{what} launched its kernels inside the program")
 
+        cfg_path = check_cfg_specs(tmp)
+        check_adam_card_vs_cpu(device)
+        weights = drive_converters(cfg, npz, cfg_path, tmp, card)
+        tool_launches = {
+            "weights_detect": drive_weights_detect(npz, weights, tmp, device),
+            "camera": drive_camera(npz, tmp, device, int8=False),
+            "camera_int8": drive_camera(npz, tmp, device, int8=True)}
+        for path, want in (
+                ("weights_detect", (1, 1, 0)),
+                ("camera", (CAMERA_FRAMES, 0, 0)),
+                ("camera_int8", (CAMERA_FRAMES, 0, n_int8 * CAMERA_FRAMES))):
+            check(tool_launches[path] == dict(zip(
+                ("nms_greedy", "stem_fused", "int8_requant"), want)),
+                f"{path}: launches {want} (nms, stem, requant)")
+        drive_host_tools(tr, device)
+
         print(f"phase times [{card}]:", flush=True)
         time_path(cfg, npz, model, run, card)
         progs.update(int8_programs(npz, run["canvases"]))
@@ -2425,7 +2695,7 @@ def main() -> int:
             check(got == {"nms_greedy": 1, "stem_fused": 0,
                           "int8_requant": n_int8},
                   f"{fuse}: one NMS and {n_int8} requant launches a batch")
-        time_fusion(progs, run["canvases"], card)
+        fusion_ms = time_fusion(progs, run["canvases"], card)
         stem_times = time_stem(progs, run["canvases"], card)
         nms_times = time_nms(shifted, valid, keep, cfg.detect.nms_iou, card)
         requant_times = time_int8_requant(progs, run["canvases"], card)
@@ -2436,14 +2706,37 @@ def main() -> int:
         print(f"  [{card}] cli.train images_per_sec, steps 1-{len(ips)}: "
               f"{', '.join(f'{v:.1f}' for v in ips)} (median of steps 2-"
               f"{len(ips)}: {statistics.median(ips[1:]):.1f})", flush=True)
-        time_train_step(load_config(["config.ini"]), device, card)
+        train_times = time_train_step(load_config(["config.ini"]), device,
+                                      card)
+        # MFU over the H100 SXM5's dense peaks (utils/flops.py), FLOPs of
+        # the unfused model as yolojax counts them
+        unfused = cfg.build_model()
+        per_image = flops.model_flops_per_image(unfused, cfg.model.dim)
+        print_mfu(card, f"b{BATCH} bf16 fused serving",
+                  BATCH / statistics.mean(fusion_ms["pallas"]) * 1e3,
+                  per_image, flops.PEAK_BF16, "bf16")
+        int8_ips = BATCH / statistics.mean(fusion_ms["int8-xla"]) * 1e3
+        print(f"  [{card}] mfu b{BATCH} int8 xla serving: "
+              f"{flops.int8_mfu(int8_ips, unfused, cfg.model.dim):.4f} "
+              f"({int8_ips:.1f} img/s; the trunk at the int8 peak "
+              f"{flops.PEAK_INT8 / 1e12:.1f} TFLOP/s, the bf16 head at the "
+              f"bf16 peak {flops.PEAK_BF16 / 1e12:.1f})", flush=True)
+        train_per_image = flops.train_flops_per_image(unfused, cfg.model.dim)
+        tb = cfg.queue.batch_size
+        print_mfu(card, f"b{tb} bf16 train step", train_times["img_s"],
+                  train_per_image, flops.PEAK_BF16, "bf16")
+        for kind in ("qat", "distill"):
+            print_mfu(card, f"b{tb} f32 {kind} step (TF32 off)",
+                      tb / qat_times[kind]["ms"] * 1e3, train_per_image,
+                      flops.PEAK_F32, "f32")
 
     # launches: the eval path's run (the int8 kernel: the int8 detect run);
     # launches_by_path: each path's own run
     by_path = {name: {"serving": serving, "eval": ev["launches"][name],
                       "train": tr["launches"][name],
                       **{p: i8["launches"][p][name] for p in INT8_PATHS},
-                      **{p: qat_launches[p][name] for p in QAT_PATHS}}
+                      **{p: qat_launches[p][name] for p in QAT_PATHS},
+                      **{p: tool_launches[p][name] for p in TOOL_PATHS}}
                for name, serving in (("nms_greedy", run["launches"]),
                                      ("stem_fused", run["stem_launches"]),
                                      ("int8_requant", run["int8_launches"]))}

@@ -3,6 +3,7 @@ on the CPU with jax blocked, the settings it does not port yet (or that do
 not apply to the weights given), which raise instead of being ignored, and
 the int8 and ``--stdin`` paths, which once raised and now run."""
 
+import dataclasses
 import io
 import os
 import subprocess
@@ -17,6 +18,7 @@ from yolojax_torch.cli import detect
 from yolojax_torch.config import load_config
 from yolojax_torch.convert.store import save_network_npz
 from yolojax_torch.models import get_model
+from yolojax_torch.nn.layers import ConvSpec
 from yolojax_torch.utils.restore import load_weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,11 +171,37 @@ def test_unported_detect_flags_raise(tiny_setup, monkeypatch, capsys, flag):
 
 
 def test_unported_weight_sources_raise(tmp_path):
+    """The weight sources that once raised now load: a Darknet ``.weights``
+    file and a TF1 checkpoint prefix give the network they were written
+    from. An empty directory and an unknown file still raise."""
+    from yolojax_torch.convert.darknet import save_darknet_weights
+
     model = get_model("yolo2", "tiny", 20)
-    for path in (str(tmp_path / "w.weights"),
-                 str(tmp_path / "model.ckpt-1000")):
-        with pytest.raises(NotImplementedError):
-            load_weights(path, model)
+    net = model.init(torch.Generator().manual_seed(5), 64)
+    weights = str(tmp_path / "w.weights")
+    save_darknet_weights(model, net, weights)
+    want = net.state_dict()
+    got = load_weights(weights, model, 64).state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    tf = pytest.importorskip("tensorflow")
+    # a one-conv TF1 checkpoint: HWIO kernel and biases, slim names
+    tiny = dataclasses.replace(model, specs=(ConvSpec(4, 3, bn=False),))
+    rng = np.random.RandomState(1)
+    w_hwio = rng.normal(size=(3, 3, 3, 4)).astype(np.float32)
+    b = rng.normal(size=4).astype(np.float32)
+    graph = tf.Graph()
+    with graph.as_default():
+        tf.compat.v1.get_variable("net/Conv/weights",
+                                  initializer=tf.constant(w_hwio))
+        tf.compat.v1.get_variable("net/Conv/biases", initializer=tf.constant(b))
+        with tf.compat.v1.Session(graph=graph) as sess:
+            sess.run(tf.compat.v1.global_variables_initializer())
+            prefix = tf.compat.v1.train.Saver().save(
+                sess, str(tmp_path / "model.ckpt-1000"))
+    tf1 = load_weights(prefix, tiny, 64)
+    assert torch.equal(tf1.conv_0.w,
+                       torch.from_numpy(w_hwio).permute(3, 2, 0, 1))
+    assert torch.equal(tf1.conv_0.b, torch.from_numpy(b))
     # a directory is a training checkpoint dir (ported); this one has none
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         load_weights(str(tmp_path), model)

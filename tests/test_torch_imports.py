@@ -44,7 +44,8 @@ def test_port_imports_without_jax():
             importlib.import_module(name)
         import chip_smoke  # its imports; main() runs only as a script
         loaded = [m for m, mod in sys.modules.items() if mod is not None
-                  and m.split(".")[0] in ("jax", "jaxlib", "yolojax")]
+                  and m.split(".")[0] in ("jax", "jaxlib", "yolojax",
+                                          "tensorflow")]
         assert not loaded, loaded
         print(" ".join(names))
     """)
@@ -57,7 +58,16 @@ def test_port_imports_without_jax():
             "yolojax_torch.data.augment", "yolojax_torch.quantize.qat",
             "yolojax_torch.cli.qat", "yolojax_torch.serve",
             "yolojax_torch.serve.batching", "yolojax_torch.cli.export",
-            "yolojax_torch.cli.serve", "yolojax_torch.kernels.ops"} <= names
+            "yolojax_torch.cli.serve", "yolojax_torch.kernels.ops",
+            "yolojax_torch.convert.darknet", "yolojax_torch.convert.cfg",
+            "yolojax_torch.convert.tf1", "yolojax_torch.utils.restore",
+            "yolojax_torch.utils.flops", "yolojax_torch.data.anchors",
+            "yolojax_torch.__main__", "yolojax_torch.cli.parse_darknet",
+            "yolojax_torch.cli.parse_darknet_yolo2",
+            "yolojax_torch.cli.kmeans_anchors",
+            "yolojax_torch.cli.demo_data_augmentation",
+            "yolojax_torch.cli.detect_camera",
+            "yolojax_torch.utils.metrics"} <= names
 
 
 def test_pyproject_lists_every_port_package():

@@ -584,12 +584,14 @@ def test_qat_optimizer_is_clip_then_adam(qat_setup):
     assert (tx.name, tx.cfg.grad_clip_norm, tx.cfg.weight_decay) == (
         "adam", 1.0, 0.0)
     p = {"w": torch.ones(3)}
-    g = {"w": torch.tensor([30.0, -40.0, 0.0])}  # norm 50: clipped to 1
-    u, _ = tx.update(g, tx.init(p), p)
     jtx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(LR))
-    ju, _ = jtx.update({"w": jnp.asarray(g["w"].numpy())},
-                       jtx.init({"w": jnp.ones(3)}))
-    # optax forms adam's bias correction 1 - 0.999^t in f32 (off by 1.3e-5
-    # relative at t = 1), the port in float64: 6.4e-6 apart in the update
-    np.testing.assert_allclose(u["w"].numpy(), np.asarray(ju["w"]),
-                               rtol=1e-5)
+    state, jstate = tx.init(p), jtx.init({"w": jnp.ones(3)})
+    # the first update (norm 50: clipped to 1), then grads under and over
+    # the clip. The limit is bit equality: the port forms the bias
+    # corrections 1 - b^t in f32 as optax does and divides by them as
+    # tensors, and takes the f32 square roots correctly rounded
+    for g in ([30.0, -40.0, 0.0], [0.1, 0.2, -0.3], [3.0, 1.0, -7.0],
+              [0.0, 0.5, 0.25], [-2.0, 9.0, 4.0]):
+        u, state = tx.update({"w": torch.tensor(g)}, state, p)
+        ju, jstate = jtx.update({"w": jnp.asarray(g, jnp.float32)}, jstate)
+        np.testing.assert_array_equal(u["w"].numpy(), np.asarray(ju["w"]))

@@ -126,7 +126,7 @@ def test_config_files_parse_like_yolojax(path):
 @pytest.mark.parametrize("override", [
     "train.mesh_model=2", "train.mesh_data=2", "train.zero=1",
     "train.coordinator=localhost:1234", "queue.loader=grain",
-    "train.tensorboard=1", "train.profile_port=9999",
+    "train.num_processes=2", "train.profile_port=9999",
     "eval.data_parallel=on"])
 def test_unported_train_settings_raise(override):
     cfg = load_config([os.path.join(REPO, "config.ini")],

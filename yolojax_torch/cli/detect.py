@@ -12,8 +12,9 @@ Port of ``cli/detect.py``. Usage:
   ... --artifact m.yjts --image IMG          # an exported serving artifact
                                             # (cli/export.py), also --stdin
 
-``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
-directory (``detect.use_ema=1``: its EMA weights). ``detect.fuse_stem`` =
+``--weights`` takes an ``.npz`` store, a Darknet ``.weights`` file, a TF1
+checkpoint prefix or a training logdir / checkpoint directory
+(``detect.use_ema=1``: its EMA weights). ``detect.fuse_stem`` =
 ``pallas`` or ``auto`` runs conv0 + pool 1 as the CUDA stem kernel (its
 plain version on the CPU), ``xla`` as the packed conv in PyTorch.
 ``detect.use_int8=1`` runs the int8 trunk (``quantize/ptq.py``), calibrated
@@ -65,7 +66,7 @@ def build_serving(cfg, weights_path: str, calib_canvases=None, *,
     model = cfg.build_model()
     names = cfg.names()
     dim = cfg.model.dim
-    net = load_weights(weights_path, model, use_ema=cfg.detect.use_ema)
+    net = load_weights(weights_path, model, dim, use_ema=cfg.detect.use_ema)
     # BN folds at the forward's 1e-5, as yolojax's detect does: it never
     # reads [model] bn_eps
     model, net = fold_bn(model, net)
@@ -415,7 +416,8 @@ def run_stream(cfg, weights_path: str, out_dir: Optional[str] = None,
 def main():
     parser = make_parser(__doc__)
     parser.add_argument("--weights", default="",
-                        help=".npz param store or training logdir")
+                        help=".npz param store, Darknet .weights, TF1 "
+                             "checkpoint prefix or training logdir")
     parser.add_argument("--artifact", default="",
                         help="serving artifact from cli/export.py (replaces "
                              "--weights and the [model] section: program, "

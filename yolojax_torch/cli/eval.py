@@ -10,8 +10,9 @@ Usage:
       [--device cpu] [section.key=value ...]
   ... --artifact m.yjts   # score an exported artifact (cli/export.py)
 
-``--weights`` takes an ``.npz`` store or a training logdir / checkpoint
-directory (``detect.use_ema=1``: its EMA weights).
+``--weights`` takes an ``.npz`` store, a Darknet ``.weights`` file, a TF1
+checkpoint prefix or a training logdir / checkpoint directory
+(``detect.use_ema=1``: its EMA weights).
 ``detect.fuse_stem=pallas`` (or ``auto``) runs conv0 + pool 1 as the CUDA
 stem kernel. Convs run in f32 on the CPU and in bf16 on the card.
 ``detect.use_int8=1`` runs the int8 trunk, calibrated on the phase's first
@@ -93,7 +94,8 @@ def main():
         names = cfg.names()
         metrics = evaluate_model(
             model,
-            load_weights(args.weights, model, use_ema=cfg.detect.use_ema),
+            load_weights(args.weights, model, cfg.model.dim,
+                         use_ema=cfg.detect.use_ema),
             cache,
             input_dim=cfg.model.dim,
             batch_size=cfg.eval.batch_size,

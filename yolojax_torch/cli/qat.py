@@ -74,7 +74,8 @@ def run_qat(cfg, weights: str, output: str, qcfg: QatConfig, *,
     log.info("QAT data: %d images, %d classes, device %s", len(cache),
              model.num_classes, device)
 
-    net = load_weights(weights, model, use_ema=cfg.detect.use_ema)
+    net = load_weights(weights, model, cfg.model.dim,
+                       use_ema=cfg.detect.use_ema)
     folded_model, folded = fold_bn(model, net)
     folded = folded.to(device)
 

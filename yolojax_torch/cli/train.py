@@ -20,7 +20,10 @@ cache, through the CUDA NMS kernel and, with ``detect.fuse_stem``, the
 stem kernel. Not ported yet (they raise NotImplementedError):
 ``train.mesh_data``/``train.mesh_model`` > 1, ``train.zero``,
 ``train.coordinator``/``train.num_processes`` (multi-device),
-``queue.loader=grain``, ``train.tensorboard`` and ``train.profile_port``.
+``queue.loader=grain`` and ``train.profile_port`` (torch has no profiler
+server; ``train.profile_steps`` writes a trace). ``train.tensorboard=1``
+also writes the scalars and histograms as TensorBoard events in the
+logdir.
 """
 
 from __future__ import annotations
@@ -70,13 +73,13 @@ def _check_ported(cfg) -> None:
          f"eval.data_parallel=on for the in-training eval {_MULTI_DEVICE}"),
         (cfg.queue.loader == "grain",
          "queue.loader=grain (ROADMAP queue 1, checkpoint and host data)"),
-        (t.tensorboard, "train.tensorboard (ROADMAP queue 1, config and "
-                        "CLIs); metrics.jsonl is written"),
-        (bool(t.profile_port), "train.profile_port (ROADMAP queue 1, config "
-                               "and CLIs); use train.profile_steps"),
     ):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
+    if t.profile_port:
+        raise NotImplementedError(
+            "train.profile_port: torch has no live profiler server; use "
+            "train.profile_steps for a trace of one step")
 
 
 def _load_init_weights(ts, model, path: str, transfer: str) -> None:
@@ -144,7 +147,7 @@ def train(cfg, *, device=None, init_weights: str = "", transfer: str = ""):
                              model.downsample)),
             every=tcfg.multi_scale_every, seed=tcfg.seed)
         if tcfg.multi_scale and model.kind == "v2" else None)
-    metrics_log = MetricsLogger(logdir)
+    metrics_log = MetricsLogger(logdir, tensorboard=tcfg.tensorboard)
     timer = StepTimer()
 
     def batches():

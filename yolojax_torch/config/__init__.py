@@ -81,9 +81,9 @@ class TrainConfig:
     multi_scale_every: int = 10
     compute_dtype: str = "bfloat16"
     remat: bool = False            # recompute the forward in the backward
-    tensorboard: bool = False      # not ported (raises)
+    tensorboard: bool = False      # TensorBoard events beside the jsonl
     profile_steps: int = 0         # torch.profiler trace of step N
-    profile_port: int = 0          # live profiler server: not ported (raises)
+    profile_port: int = 0          # live profiler server: refused in torch
     debug_nans: bool = False       # autograd anomaly detection
     halt_on_nonfinite: bool = True # stop + forensic save on a NaN/inf loss
     # multi-device: not ported (values other than these raise)

@@ -343,39 +343,25 @@ class Network(nn.Module):
                 layer.var.copy_(var)
 
 
-def init_network(generator: torch.Generator, specs: Sequence[LayerSpec],
-                 in_channels: int, input_hw: Tuple[int, int]) -> Network:
-    """He-normal conv/dense kernels (leaky gain), unit BN, zero biases,
-    as yolojax's ``init_network``; draws come from ``generator`` (on the
-    CPU) and are not yolojax's random bits."""
-    layers: Dict[str, nn.Module] = {}
+def _shape_walk(specs: Sequence[LayerSpec], in_channels: int,
+                input_hw: Tuple[int, int]):
+    """Yield ``(index, spec, input channels)`` for each spec, following the
+    channel count and spatial size through the network as the forward
+    changes them (Darknet conv arithmetic, ceil pools, routes, reorg, the
+    flatten before a dense layer)."""
     h, w = input_hw
     c = in_channels
     channel_hist = []  # per-spec output channels for RouteSpec
     hw_hist = []
     for i, spec in enumerate(specs):
+        yield i, spec, c
         tname = type(spec).__name__
         if tname == "StemSpec":
-            from yolojax_torch.nn.stem import pack_stem_kernel
-
-            w0 = torch.randn((3, 3, c, spec.out), generator=generator)
-            wp = pack_stem_kernel((w0 * math.sqrt(2.0 / (9 * c))).numpy())
-            layers[_conv_name(i)] = StemLayer(torch.from_numpy(wp),
-                                              torch.zeros(spec.out))
             c = spec.out
             h, w = h // 2, w // 2
         elif tname == "NoOpSpec":
             pass
         elif isinstance(spec, ConvSpec):
-            std = math.sqrt(2.0 / (spec.ksize * spec.ksize * c))
-            wt = torch.randn((spec.out, c, spec.ksize, spec.ksize),
-                             generator=generator) * std
-            if spec.bn:
-                layers[_conv_name(i)] = ConvLayer(
-                    wt, scale=torch.ones(spec.out), bias=torch.zeros(spec.out),
-                    mean=torch.zeros(spec.out), var=torch.ones(spec.out))
-            else:
-                layers[_conv_name(i)] = ConvLayer(wt, b=torch.zeros(spec.out))
             c = spec.out
             h = (h + 2 * (spec.ksize // 2) - spec.ksize) // spec.stride + 1
             w = (w + 2 * (spec.ksize // 2) - spec.ksize) // spec.stride + 1
@@ -394,15 +380,55 @@ def init_network(generator: torch.Generator, specs: Sequence[LayerSpec],
             c = c * h * w
             h = w = 1
         elif isinstance(spec, DenseSpec):
+            c = spec.out
+        elif not isinstance(spec, DropoutSpec):
+            raise TypeError(f"unknown layer spec: {spec!r}")
+        channel_hist.append(c)
+        hw_hist.append((h, w))
+
+
+def weight_shapes(specs: Sequence[LayerSpec], in_channels: int,
+                  input_hw: Tuple[int, int]) -> Dict[str, Tuple[int, ...]]:
+    """The kernel shape of each conv (``conv_<i>``: OIHW) and dense
+    (``dense_<i>``: (out, in)) layer, without building the network; a
+    dense layer's input size depends on ``input_hw`` through the
+    flatten."""
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    for i, spec, c in _shape_walk(specs, in_channels, input_hw):
+        if isinstance(spec, ConvSpec):
+            shapes[_conv_name(i)] = (spec.out, c, spec.ksize, spec.ksize)
+        elif isinstance(spec, DenseSpec):
+            shapes[_dense_name(i)] = (spec.out, c)
+    return shapes
+
+
+def init_network(generator: torch.Generator, specs: Sequence[LayerSpec],
+                 in_channels: int, input_hw: Tuple[int, int]) -> Network:
+    """He-normal conv/dense kernels (leaky gain), unit BN, zero biases,
+    as yolojax's ``init_network``; draws come from ``generator`` (on the
+    CPU) and are not yolojax's random bits."""
+    layers: Dict[str, nn.Module] = {}
+    for i, spec, c in _shape_walk(specs, in_channels, input_hw):
+        if type(spec).__name__ == "StemSpec":
+            from yolojax_torch.nn.stem import pack_stem_kernel
+
+            w0 = torch.randn((3, 3, c, spec.out), generator=generator)
+            wp = pack_stem_kernel((w0 * math.sqrt(2.0 / (9 * c))).numpy())
+            layers[_conv_name(i)] = StemLayer(torch.from_numpy(wp),
+                                              torch.zeros(spec.out))
+        elif isinstance(spec, ConvSpec):
+            std = math.sqrt(2.0 / (spec.ksize * spec.ksize * c))
+            wt = torch.randn((spec.out, c, spec.ksize, spec.ksize),
+                             generator=generator) * std
+            if spec.bn:
+                layers[_conv_name(i)] = ConvLayer(
+                    wt, scale=torch.ones(spec.out), bias=torch.zeros(spec.out),
+                    mean=torch.zeros(spec.out), var=torch.ones(spec.out))
+            else:
+                layers[_conv_name(i)] = ConvLayer(wt, b=torch.zeros(spec.out))
+        elif isinstance(spec, DenseSpec):
             std = math.sqrt(2.0 / c)
             layers[_dense_name(i)] = DenseLayer(
                 torch.randn((spec.out, c), generator=generator) * std,
                 torch.zeros(spec.out))
-            c = spec.out
-        elif isinstance(spec, DropoutSpec):
-            pass
-        else:
-            raise TypeError(f"unknown layer spec: {spec!r}")
-        channel_hist.append(c)
-        hw_hist.append((h, w))
     return Network(specs, layers)

@@ -99,9 +99,25 @@ def decay_mask(params: Tensors) -> Dict[str, bool]:
     return {k: p.ndim > 1 for k, p in params.items()}
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root that XLA computes: torch's
+    CPU ``sqrt`` is not always, a float64 root rounded to f32 is."""
+    return torch.sqrt(x.double()).float()
+
+
 def global_norm(tree: Tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tree.values()))
+    return sqrt_rn(sum(torch.sum(torch.square(t.float()))
+                       for t in tree.values()))
+
+
+def _bias_corrections(decays, count: int, device):
+    """Adam's ``1 - b^count`` for each decay, formed in f32 as optax forms
+    it (``b`` rounds to f32 before the power; numpy's f32 power is the
+    ``powf`` XLA's CPU backend calls), each as a 0-d tensor on ``device``:
+    CUDA divides by a host scalar as a multiply by its reciprocal, and by a
+    device tensor exactly, as XLA does."""
+    return [torch.tensor(np.float32(1) - np.float32(b) ** np.float32(count),
+                         device=device) for b in decays]
 
 
 def _zeros(params: Tensors) -> Tensors:
@@ -192,8 +208,9 @@ class Optimizer:
                   for key, t in u.items()}
             nu = {key: (1 - b2) * t ** 2 + b2 * state["nu"][key]
                   for key, t in u.items()}
-            c1, c2 = 1 - b1 ** (count + 1), 1 - b2 ** (count + 1)
-            u = {key: (mu[key] / c1) / (torch.sqrt(nu[key] / c2) + eps)
+            c1, c2 = _bias_corrections((b1, b2), count + 1,
+                                       next(iter(u.values())).device)
+            u = {key: (mu[key] / c1) / (sqrt_rn(nu[key] / c2) + eps)
                  for key in u}
             if name == "adamw" and cfg.weight_decay > 0:
                 u = {key: t + cfg.weight_decay * params[key] if mask[key]
