@@ -129,6 +129,9 @@ from yolojax_torch.eval.evaluator import evaluate_model, serving_weights
 from yolojax_torch.kernels import build
 from yolojax_torch.models import Model, get_model
 from yolojax_torch.nn import cuda_stem
+from yolojax_torch.parallel import distributed, launch
+from yolojax_torch.parallel.mesh import make_mesh, shard_batch
+from yolojax_torch.parallel.sharding import Plan
 from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import (
     ConvSpec,
@@ -253,6 +256,23 @@ QAT_PATHS = ("qat_eval", "artifact_bf16", "artifact_int8", "serve",
 # phase 10: converters and tools. The camera loop's frames (two sizes)
 CAMERA_FRAMES = 6
 TOOL_PATHS = ("weights_detect", "camera", "camera_int8")
+# phase 11: multi-device. (a) cli.train in a world-1 nccl group: steps at
+# this batch, the eval after the first ones, a resume to the last step
+WORLD1_BATCH, WORLD1_STEPS = 16, 3
+# (b) two gloo ranks on the one card: full-width Darknet-19 @416, a global
+# batch of 32, two steps of each mesh (name, data, model, zero), f32 with
+# TF32 off; a constant learning rate so the steps move the weights
+MULTI_BATCH, MULTI_STEPS = 32, 2
+MULTI_RUNS = (("dp", 2, 1, False), ("zero", 2, 1, True),
+              ("tp", 1, 2, False))
+MULTI_OVERRIDES = ["train.warmup_steps=0", "train.learning_rate=1e-4"]
+# two ranks vs one, the CPU tests' bounds (tests/test_torch_parallel_train.py)
+MULTI_LOSS_RTOL, MULTI_PARAM_ATOL, MULTI_BN_RTOL = 1e-5, 1e-5, 1e-5
+MULTI_BN_ATOL = 1e-7
+MULTI_TIMEOUT = 300  # seconds a spawned group may take before it is killed
+MULTI_PATHS = ("world1_train", "dist_eval", "dp_detect", "dp_serve")
+# (c) the eval set's first images, evaluated at batch 1
+MULTI_EVAL_IMAGES = 32
 
 
 def check(cond: bool, what: str) -> None:
@@ -2549,6 +2569,556 @@ def print_mfu(card: str, label: str, images_per_sec: float,
           f"{peak / 1e12:.1f} TFLOP/s)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: multi-device (one process per device, torch.distributed)
+# ---------------------------------------------------------------------------
+
+
+def _reset_launches() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for kern in (nms_greedy_cuda, stem_fused_cuda, int8_requant_cuda):
+        kern.launches = 0
+
+
+def _launches() -> dict:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"nms_greedy": nms_greedy_cuda.launches,
+            "stem_fused": stem_fused_cuda.launches,
+            "int8_requant": int8_requant_cuda.launches}
+
+
+def _world_one_rank(rank: int, cache_dir: str, root: str, port: int,
+                    cpu: list, overrides: list) -> dict:
+    """(a), in a process of its own: ``cli.train`` on config.ini (train.zero=1,
+    the in-training eval with the fused stem, a checkpoint, a resume), once
+    without a process group and once inside a one-process ``nccl`` group
+    made by ``distributed.initialize`` with the same config keys. cuDNN
+    picks its algorithms by heuristics and deterministically in both."""
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    argv = ["-c", "config.ini", f"cache.basedir={cache_dir}",
+            f"queue.batch_size={WORLD1_BATCH}", "train.save_steps=2",
+            "train.summary_steps=1", f"train.eval_steps={WORLD1_STEPS - 1}",
+            "train.zero=1", "detect.fuse_stem=pallas",
+            f"eval.batch_size={EVAL_BATCH}", *overrides]
+    cfg = load_config(["config.ini"], overrides)
+    run_dir = f"{cfg.model.model}_{cfg.model.inference}"
+    out = {}
+    for name in ("plain", "group"):
+        extra = []
+        if name == "group":
+            distributed.initialize(f"127.0.0.1:{port}", 1, 0,
+                                   backend="nccl" if not cpu else "gloo",
+                                   device="cpu" if cpu else "cuda")
+            extra = [f"train.coordinator=127.0.0.1:{port}",
+                     "train.num_processes=1", "train.process_id=0"]
+        logroot = os.path.join(root, name)
+        logdir = os.path.join(logroot, run_dir)
+        _reset_launches()
+        t0 = time.perf_counter()
+        run_cli(train_cli, argv + extra + [f"train.logdir={logroot}",
+                                           f"train.steps={WORLD1_STEPS - 1}",
+                                           *cpu])
+        launches = _launches()
+        with log_lines("train") as resumed:
+            run_cli(train_cli, argv + extra + [f"train.logdir={logroot}",
+                                               f"train.steps={WORLD1_STEPS}",
+                                               *cpu])
+        seconds = time.perf_counter() - t0
+        ck = Checkpointer(os.path.join(logdir, "ckpt"))
+        _, state = ck.restore_latest_raw()
+        out[name] = {"rows": metric_rows(logdir), "launches": launches,
+                     "resumed": any(m.startswith(f"resumed from step "
+                                                 f"{WORLD1_STEPS - 1}")
+                                    for m in resumed),
+                     "state": state, "seconds": seconds}
+    a, b = out["plain"]["state"], out["group"]["state"]
+    unequal = [f"{sec}/{k}" for sec in ("params", "bn_state")
+               for k in a[sec] if not torch.equal(a[sec][k], b[sec][k])]
+    unequal += [f"opt_state/{key}/{k}" for key, v in a["opt_state"].items()
+                if isinstance(v, dict) for k in v
+                if not torch.equal(v[k], b["opt_state"][key][k])]
+    for name in out:
+        out[name].pop("state")
+    rows = {name: [{k: v for k, v in r.items()
+                    if k not in ("images_per_sec", "time")}
+                   for r in out[name]["rows"]] for name in out}
+    out["rows_equal"] = rows["plain"] == rows["group"]
+    out["unequal"] = unequal
+    out["steps"] = a["step"], b["step"]
+    return out
+
+
+def check_world_one(tr: dict, tmp: str, device, card: str,
+                    overrides=()) -> dict:
+    """(a) world size 1 under ``nccl`` equals no process group, bit for
+    bit: the metric rows (losses, gradient norms, the eval's mAP) and every
+    tensor of the final checkpoint; the NMS kernel runs once an eval
+    batch."""
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    res = launch.run(_world_one_rank, 1, group=False, timeout=MULTI_TIMEOUT,
+                     args=(tr["cache_dir"], os.path.join(tmp, "world1"),
+                           launch.free_port(), cpu, list(overrides)))[0]
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    g = res["group"]
+    print(f"phase multi-device (a): cli.train b{WORLD1_BATCH} "
+          f"train.zero=1, {WORLD1_STEPS - 1} steps + eval + resume to "
+          f"{WORLD1_STEPS}: without a group {res['plain']['seconds']:.2f} s, "
+          f"in a world-1 nccl group {g['seconds']:.2f} s; metric rows equal "
+          f"{res['rows_equal']}, checkpoint tensors unequal "
+          f"{len(res['unequal'])} {res['unequal'][:4]}; launches "
+          f"{g['launches']}", flush=True)
+    plain_rate = {r["step"]: r["images_per_sec"]
+                  for r in res["plain"]["rows"] if "total" in r}
+    for r in g["rows"]:
+        if "total" in r:
+            print(f"  [{card}] world-1 step {r['step']}: loss {r['total']:.6f}"
+                  f" grad_norm {r['grad_norm']:.6f}, {r['images_per_sec']:.1f}"
+                  f" img/s (no group: {plain_rate[r['step']]:.1f})",
+                  flush=True)
+    check(res["steps"] == (WORLD1_STEPS, WORLD1_STEPS),
+          "both runs resumed to the last step")
+    check(res["plain"]["resumed"] and g["resumed"], "both runs resumed")
+    check(res["rows_equal"] and not res["unequal"],
+          "world-1 nccl run == the run without a group, bit for bit")
+    check(g["launches"]["nms_greedy"] == g["launches"]["stem_fused"]
+          == batches, "the world-1 in-training eval: each kernel once a "
+                      "batch")
+    return g["launches"]
+
+
+def multi_batches(cfg) -> list:
+    """MULTI_STEPS global batches of MULTI_BATCH canvases with two boxes
+    each, seeded."""
+    rng = np.random.RandomState(SEED + 3)
+    c, g = cfg.queue.canvas_dim, cfg.queue.max_boxes
+    out = []
+    for _ in range(MULTI_STEPS):
+        images = rng.uniform(0, 1, (MULTI_BATCH, c, c, 3)).astype(np.float32)
+        boxes = np.zeros((MULTI_BATCH, g, 4), np.float32)
+        boxes[:, 0] = [0.4, 0.5, 0.3, 0.3]
+        boxes[:, 1] = [0.7, 0.3, 0.2, 0.4]
+        cls = rng.randint(0, 20, (MULTI_BATCH, g)).astype(np.int32)
+        valid = np.zeros((MULTI_BATCH, g), bool)
+        valid[:, :2] = True
+        out.append((images, boxes, cls, valid))
+    return out
+
+
+def multi_setup(device, overrides=()):
+    cfg = load_config(["config.ini"], MULTI_OVERRIDES + list(overrides))
+    model = cfg.build_model()
+    tx = train_step.make_optimizer(cfg.optimizer)
+    ts = train_step.init_train_state(
+        model, tx, torch.Generator().manual_seed(SEED), cfg.model.dim, device)
+    fn = train_step.make_train_step(
+        model, tx, loss_cfg=cfg.loss_config(), aug_cfg=cfg.augment,
+        augment=True, compute_dtype=torch.float32)
+    return cfg, ts, fn
+
+
+def multi_steps(cfg, ts, fn, device) -> tuple:
+    """The seeded steps, this rank's rows of each global batch: per-step
+    (loss, ms on the host clock around the step and its sync)."""
+    losses, ms = [], []
+    for b in multi_batches(cfg):
+        b = tuple(torch.from_numpy(a) for a in b)
+        if ts.plan is not None and ts.plan.mesh.data > 1:
+            b = shard_batch(ts.plan.mesh, b)
+        b = tuple(t.to(device) for t in b)
+        sync = torch.cuda.synchronize if device.type == "cuda" else (
+            lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        ts, m = fn(ts, b, SEED + 1, cfg.model.dim)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["total"]))
+    return losses, ms
+
+
+def probe_collectives(device) -> dict:
+    """Which collectives the default group takes on ``device`` tensors."""
+    import torch.distributed as dist
+
+    x = torch.ones(8, device=device)
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(dist.get_world_size())], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "barrier": dist.barrier,
+    }
+    got = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            got[name] = "ok"
+        except RuntimeError as e:
+            got[name] = str(e).splitlines()[0][:120]
+    return got
+
+
+def multi_errors(got: dict, ref: dict) -> dict:
+    """Two runs' distance: the largest relative loss error over the steps,
+    the largest absolute parameter error, and the BN statistics' error as
+    |a - b| / (|b| + atol / rtol) (<= rtol iff within assert_allclose's
+    rtol and atol, the CPU tests' check)."""
+    return {
+        "loss": max(abs(a - b) / abs(b)
+                    for a, b in zip(got["losses"], ref["losses"])),
+        "param": max(float((got["params"][k].detach().cpu() - v).abs().max())
+                     for k, v in ref["params"].items()),
+        "bn": max(float(((got["bn_state"][k].cpu() - v).abs()
+                         / (v.abs() + MULTI_BN_ATOL / MULTI_BN_RTOL)).max())
+                  for k, v in ref["bn_state"].items()),
+    }
+
+
+def _multi_rank(rank: int, ref_path: str, device_type: str,
+                overrides: list) -> dict:
+    """(b), on rank ``rank`` of two ``gloo`` ranks sharing the card: each
+    mesh's steps from the seeded full state (f32, TF32 off, cuDNN's
+    deterministic algorithms), its full state gathered; rank 0 measures
+    its distance from the one-rank run."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if device_type == "cuda" else torch.device("cpu"))
+    out = {"collectives": probe_collectives(device)}
+    missing = [k for k, v in out["collectives"].items() if v != "ok"]
+    if missing:
+        raise RuntimeError(f"gloo on {device_type} tensors refuses "
+                           f"{missing}: {out['collectives']}")
+    ref = torch.load(ref_path) if rank == 0 else None
+    torch.backends.cudnn.deterministic = True
+    with full_f32():
+        for name, data, model_ax, zero in MULTI_RUNS:
+            cfg, ts, fn = multi_setup(device, overrides)
+            Plan(make_mesh(data=data, model=model_ax), zero=zero).shard(ts)
+            losses, ms = multi_steps(cfg, ts, fn, device)
+            full = ts.plan.gather(ts) if ts.plan.sharded else \
+                multi_state(ts)
+            out[name] = {"losses": losses, "ms": ms}
+            if rank == 0:
+                out[name]["errors"] = multi_errors(
+                    {"losses": losses, **full}, ref)
+            del ts, full
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
+def multi_state(ts) -> dict:
+    return {"params": {k: v.detach().cpu()
+                       for k, v in ts.net.named_parameters()},
+            "bn_state": {k: v.cpu() for k, v in ts.net.named_buffers()
+                         if k.endswith((".mean", ".var"))}}
+
+
+def _moments_in_halves(y, mesh=None):
+    """Train-mode BN's moments with every sum taken as two ranks take it:
+    each half of the batch summed, then the two sums added (one process
+    computing what a two-rank all-reduce computes, in f32)."""
+    n = y.shape[0] * y.shape[1] * y.shape[2]
+    h = y.shape[0] // 2
+
+    def sum2(t):
+        return t[:h].sum(dim=(0, 1, 2)) + t[h:].sum(dim=(0, 1, 2))
+
+    m = sum2(y) / n
+    return m, sum2(torch.square(y - m)) / n
+
+
+def check_multi_steps(tmp: str, device, card: str, overrides=()) -> dict:
+    """(b) two ranks on the one card under ``gloo`` (``nccl`` refuses two
+    ranks on one GPU): data parallel with augmentation, ZeRO-1 and
+    ``mesh_model=2``, each two steps of full-width Darknet-19 @416 on a
+    global batch of 32 in f32 (TF32 off), against one rank on the same
+    global batches with cuDNN's deterministic algorithms; the step times
+    beside the one-rank step's, as a finding.
+
+    Full-width Darknet-19 takes a large first step from its random init,
+    and its 23 layers of batch statistics carry an f32 rounding difference
+    to the loss and weights (the CPU tests' bounds hold on their smaller
+    nets). So the one-rank step also runs twice more, to measure this
+    card's floor for two runs of one step: once with every BN sum taken in
+    the two ranks' halves (the order the all-reduce adds them in), once
+    with cuDNN free to pick its (non-deterministic) algorithms, as the
+    ranks' smaller batches make it pick others. Each mesh is held within
+    the CPU tests' bounds or, where it is larger, twice the sum of the two
+    floors."""
+    from yolojax_torch.nn import layers
+
+    refs = {}
+    for name, det in (("deterministic", True), ("halves", True),
+                      ("heuristic", False)):
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = det
+        cfg, ts, fn = multi_setup(device, overrides)
+        with full_f32(), mock.patch.object(
+                layers, "_batch_moments",
+                _moments_in_halves if name == "halves"
+                else layers._batch_moments):
+            losses, ms = multi_steps(cfg, ts, fn, device)
+        refs[name] = {"losses": losses, "ms": ms, **multi_state(ts)}
+        del ts
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
+    ref = refs["deterministic"]
+    floors = {n: multi_errors(refs[n], ref) for n in ("halves", "heuristic")}
+    limit = {k: max(bound, 2 * (floors["halves"][k]
+                                + floors["heuristic"][k]))
+             for k, bound in (("loss", MULTI_LOSS_RTOL),
+                              ("param", MULTI_PARAM_ATOL),
+                              ("bn", MULTI_BN_RTOL))}
+    ref_path = os.path.join(tmp, "multi_ref.pt")
+    torch.save(ref, ref_path)
+    t0 = time.perf_counter()
+    res = launch.run(_multi_rank, 2,
+                     args=(ref_path, device.type, list(overrides)),
+                     backend="gloo", device=device.type,
+                     timeout=MULTI_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    print(f"phase multi-device (b): gloo on {device.type} tensors: "
+          f"{res[0]['collectives']}; two ranks, {seconds:.1f} s", flush=True)
+    print(f"  [{card}] one rank b{MULTI_BATCH}@{cfg.model.dim} f32 (TF32 "
+          f"off), deterministic cuDNN: losses "
+          f"{', '.join(f'{v:.6f}' for v in ref['losses'])}; step ms "
+          f"{', '.join(f'{v:.1f}' for v in ref['ms'])}", flush=True)
+    for name, f in floors.items():
+        print(f"  one rank, floor {name} vs deterministic: loss "
+              f"{f['loss']:.2e}, params {f['param']:.2e}, BN {f['bn']:.2e}",
+              flush=True)
+    print(f"  limits (the CPU bounds 1e-5, or twice the floors' sum): loss "
+          f"{limit['loss']:.2e}, params {limit['param']:.2e}, BN "
+          f"{limit['bn']:.2e}", flush=True)
+    for name, *_ in MULTI_RUNS:
+        r = res[0][name]
+        err = r["errors"]
+        print(f"  [{card}] {name} 2 ranks: loss rel err {err['loss']:.2e}, "
+              f"params max abs err {err['param']:.2e}, BN err "
+              f"{err['bn']:.2e}; step ms rank 0 "
+              f"{', '.join(f'{v:.1f}' for v in r['ms'])}, rank 1 "
+              f"{', '.join(f'{v:.1f}' for v in res[1][name]['ms'])}",
+              flush=True)
+        check(res[1][name]["losses"] == r["losses"], f"{name}: ranks agree")
+        check(all(err[k] <= limit[k] for k in limit),
+              f"{name}: two ranks == one rank within the limits")
+    return {"one_rank_ms": ref["ms"],
+            **{n: res[0][n]["ms"] for n, *_ in MULTI_RUNS}}
+
+
+def _eval_rank(rank: int, npz: str, cache_dir: str, dumps: list,
+               overrides: list) -> list:
+    """Both ``cli.eval`` runs of (c) on this rank of a two-process group,
+    over the cache's first MULTI_EVAL_IMAGES images at batch 1: plain (the
+    primary evaluates them while the other waits) and
+    ``eval.distributed=1`` (each process its strided half); each with its
+    kernel launches."""
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    keys = ["train.coordinator=127.0.0.1:1", "train.num_processes=2",
+            f"train.process_id={rank}", "eval.batch_size=1"]
+    out = []
+    for dump, dist_on, batches in zip(
+            dumps, ("0", "1"), (MULTI_EVAL_IMAGES, MULTI_EVAL_IMAGES // 2)):
+        argv = ["--dump", dump, "--max-batches", str(batches)] + eval_argv(
+            npz, cache_dir, device,
+            overrides + keys + [f"eval.distributed={dist_on}"])
+        _reset_launches()
+        metrics, printed = run_cli(eval_cli, argv)
+        out.append({"metrics": metrics, "launches": _launches(),
+                    "printed": printed})
+    return out
+
+
+def _dump_rows(path: str) -> list:
+    with open(path) as f:
+        dump = json.load(f)
+    return sorted((d["image_id"], d["category_id"], d["score"],
+                   tuple(d["bbox"])) for d in dump["detections"])
+
+
+def check_multi_eval(npz: str, ev: dict, tmp: str, device,
+                     overrides=()) -> dict:
+    """(c) ``cli.eval eval.distributed=1`` in two processes on the card
+    (``gloo``) against the plain ``cli.eval`` of the same group's primary:
+    equal metrics and detection lists; each process launches each kernel
+    once a batch. Batches of one image: the card's bf16 convs give an image
+    other last bits in another batch (the strided shards batch other
+    images together), which would hide the eval's own faults. The first
+    MULTI_EVAL_IMAGES images (``--max-batches``, which a distributed run
+    counts per process) keep the batch-1 runs short."""
+    dumps = [os.path.join(tmp, f"{n}_dump.json") for n in ("plain", "dist")]
+    t0 = time.perf_counter()
+    res = launch.run(_eval_rank, 2, backend="gloo", device=device.type,
+                     timeout=MULTI_TIMEOUT,
+                     args=(npz, ev["cache_dir"], dumps, list(overrides)))
+    seconds = time.perf_counter() - t0
+    plain, dist_res = res[0][0], [r[1] for r in res]
+    want = plain["metrics"]
+    same = _dump_rows(dumps[0]) == _dump_rows(dumps[1])
+    launches = {k: sum(r["launches"][k] for r in dist_res)
+                for k in plain["launches"]}
+    print(f"phase multi-device (c): cli.eval eval.distributed=1, 2 processes "
+          f"(gloo), {MULTI_EVAL_IMAGES} images at batch 1, {seconds:.1f} s: mAP "
+          f"{dist_res[0]['metrics']['map']:.6f} / "
+          f"{dist_res[1]['metrics']['map']:.6f} vs plain {want['map']:.6f}, "
+          f"{dist_res[0]['metrics']['num_detections']} vs "
+          f"{want['num_detections']} detections, lists equal {same}; "
+          f"launches {[r['launches'] for r in dist_res]} (plain "
+          f"{plain['launches']})", flush=True)
+    check(res[1][0]["metrics"] is None and not res[1][0]["printed"],
+          "plain eval: the second process waited for the primary")
+    check(same, "distributed eval's detections == the plain run's")
+    per_process = MULTI_EVAL_IMAGES // 2
+    for r in dist_res:
+        check(r["metrics"]["num_images"] == MULTI_EVAL_IMAGES
+              and abs(r["metrics"]["map"] - want["map"]) <= 1e-6,
+              "distributed metrics == the plain run's on every process")
+        check(r["launches"]["nms_greedy"] == r["launches"]["stem_fused"]
+              == per_process, "each process: each kernel once an image")
+    check(bool(dist_res[0]["printed"]) and not dist_res[1]["printed"],
+          "only the primary prints")
+    return launches
+
+
+def check_data_parallel_serving(npz: str, ev: dict, device,
+                                overrides=()) -> dict:
+    """(c) ``cli.detect --data-parallel`` and ``cli.serve --data-parallel``
+    on the one card: a warning, the plain program's detections, launches
+    counted, ``devices`` 1 in ``/healthz`` and ``/stats``."""
+    import threading
+    import urllib.request
+
+    ppms = sorted(os.path.join(ev["img_dir"], f)
+                  for f in os.listdir(ev["img_dir"]))[:4]
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    argv = ["-c", "config.ini", "--weights", npz, "detect.threshold=0.005",
+            "detect.fuse_stem=pallas", *overrides, *cpu]
+    images = [a for p in ppms for a in ("--image", p)]
+    _, plain = run_cli(detect_cli, argv + images)
+    _reset_launches()
+    with log_lines("detect") as said:
+        _, dp = run_cli(detect_cli, argv + images + ["--data-parallel"])
+    detect_launches = _launches()
+    cfg = load_config(["config.ini"], ["detect.threshold=0.005",
+                                       *overrides])
+    bodies = []
+    for p in ppms:
+        with open(p, "rb") as f:
+            bodies.append(f.read())
+    answers, stats = {}, {}
+    serve_launches = None
+    # fresh dispatch threads choose cuDNN plans by heuristics here, so the
+    # two daemons' programs match bit for bit
+    torch.backends.cudnn.benchmark = False
+    try:
+        for dp_on in (False, True):
+            httpd, batcher = build_server(cfg, "127.0.0.1", 0, weights=npz,
+                                          batch=ART_BATCH, window_ms=1.0,
+                                          data_parallel=dp_on, device=device)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                _reset_launches()
+                got = []
+                for body in bodies:
+                    req = urllib.request.Request(base + "/detect", data=body)
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        got.append(json.load(r)["detections"])
+                if dp_on:
+                    serve_launches = _launches()
+                for path in ("/healthz", "/stats"):
+                    with urllib.request.urlopen(base + path, timeout=60) as r:
+                        stats[(dp_on, path)] = json.load(r)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                batcher.close()
+                thread.join(30)
+            answers[dp_on] = got
+    finally:
+        torch.backends.cudnn.benchmark = True
+    devices = (stats[(True, "/healthz")]["devices"],
+               stats[(True, "/stats")]["devices"])
+    print(f"phase multi-device (c): cli.detect --data-parallel on 4 images: "
+          f"{len(dp.splitlines())} detections, equal to the plain run "
+          f"{dp == plain}, launches {detect_launches}, warned "
+          f"{any('only 1 local device' in m for m in said)}; cli.serve "
+          f"--data-parallel: 4 requests, devices (/healthz, /stats) "
+          f"{devices}, answers equal {answers[True] == answers[False]}, "
+          f"launches {serve_launches}", flush=True)
+    check(dp == plain and bool(plain), "detect --data-parallel == plain")
+    check(any("only 1 local device" in m for m in said),
+          "detect --data-parallel warned of the one device")
+    check(detect_launches["nms_greedy"] == detect_launches["stem_fused"] == 1,
+          "detect --data-parallel: one batch, each kernel once")
+    check(devices == (1, 1), "/healthz and /stats report 1 device")
+    check(answers[True] == answers[False], "serve --data-parallel == plain")
+    check(serve_launches["nms_greedy"] == stats[(True, "/stats")]["batches"]
+          >= 1, "serve --data-parallel: one NMS launch a batch")
+    return {"dp_detect": detect_launches, "dp_serve": serve_launches}
+
+
+def check_grain(tr: dict, tmp: str, device, overrides=()) -> None:
+    """(d) ``queue.loader=grain``: three steps and a resume to four when
+    grain imports here; otherwise the ImportError must name it."""
+    from yolojax_torch.data.grain_loader import make_loader
+
+    try:
+        import grain.python  # noqa: F401
+    except ImportError as e:
+        print(f"phase multi-device (d): grain is absent here ({e})",
+              flush=True)
+        try:
+            make_loader(load_cache(tr["cache_dir"], "train"),
+                        LoaderConfig(), "grain")
+        except ImportError as err:
+            check("grain" in str(err), "the ImportError names grain")
+            return
+        check(False, "queue.loader=grain without grain raised")
+    cpu = ["--device", "cpu"] if device.type == "cpu" else []
+    root = os.path.join(tmp, "grain_logdir")
+    argv = ["-c", "config.ini", f"cache.basedir={tr['cache_dir']}",
+            "queue.loader=grain", "queue.batch_size=8", "train.save_steps=3",
+            "train.summary_steps=1", f"train.logdir={root}", *overrides]
+    cfg = load_config(["config.ini"], overrides)
+    t0 = time.perf_counter()
+    run_cli(train_cli, argv + ["train.steps=3", *cpu])
+    with log_lines("train") as resumed:
+        run_cli(train_cli, argv + ["train.steps=4", *cpu])
+    steps = [r["step"] for r in metric_rows(os.path.join(
+        root, f"{cfg.model.model}_{cfg.model.inference}"))]
+    print(f"phase multi-device (d): queue.loader=grain, 3 steps + resume to "
+          f"4 in {time.perf_counter() - t0:.1f} s; steps logged {steps}; "
+          f"{[m for m in resumed if 'grain' in m]}", flush=True)
+    check(steps == [1, 2, 3, 4], "grain: every step logged once")
+    check(any("restored grain loader state for step 3" in m
+              for m in resumed), "grain: the stream state was restored")
+
+
+def drive_multi_device(npz: str, ev: dict, tr: dict, tmp: str, device,
+                       card: str, overrides=()) -> dict:
+    """Phase 11: (a)-(d). Returns the kernels' launches on the new paths
+    and the step times of (b). ``overrides`` shrink the model for a
+    rehearsal on the CPU."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    launches = {"world1_train": check_world_one(tr, tmp, device, card,
+                                                overrides)}
+    times = check_multi_steps(tmp, device, card, overrides)
+    launches["dist_eval"] = check_multi_eval(npz, ev, tmp, device, overrides)
+    launches.update(check_data_parallel_serving(npz, ev, device, overrides))
+    check_grain(tr, tmp, device, overrides)
+    print(f"phase multi-device: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
@@ -2730,13 +3300,16 @@ def main() -> int:
                       tb / qat_times[kind]["ms"] * 1e3, train_per_image,
                       flops.PEAK_F32, "f32")
 
+        multi = drive_multi_device(npz, ev, tr, tmp, device, card)
+
     # launches: the eval path's run (the int8 kernel: the int8 detect run);
     # launches_by_path: each path's own run
     by_path = {name: {"serving": serving, "eval": ev["launches"][name],
                       "train": tr["launches"][name],
                       **{p: i8["launches"][p][name] for p in INT8_PATHS},
                       **{p: qat_launches[p][name] for p in QAT_PATHS},
-                      **{p: tool_launches[p][name] for p in TOOL_PATHS}}
+                      **{p: tool_launches[p][name] for p in TOOL_PATHS},
+                      **{p: multi["launches"][p][name] for p in MULTI_PATHS}}
                for name, serving in (("nms_greedy", run["launches"]),
                                      ("stem_fused", run["stem_launches"]),
                                      ("int8_requant", run["int8_launches"]))}

@@ -119,8 +119,9 @@ def test_detect_fuse_stem(tiny_setup, impl):
 @pytest.mark.parametrize("flag", [["--artifact", "m.yjts"], ["--stdin"],
                                   ["--data-parallel"]])
 def test_unported_detect_flags_raise(tiny_setup, monkeypatch, capsys, flag):
-    """Each case of a flag the detect CLI once refused: --data-parallel is
-    not ported and raises; --stdin runs and must serve the paths it reads,
+    """Each case of a flag the detect CLI once refused: --data-parallel
+    runs on the one device (with a warning) and must print what the plain
+    run prints; --stdin runs and must serve the paths it reads,
     answering an unreadable one in order; --artifact runs and must print
     what --weights prints for the same program (a CPU artifact exported
     from the same weights). The test keeps its name so each case keeps its
@@ -164,10 +165,19 @@ def test_unported_detect_flags_raise(tiny_setup, monkeypatch, capsys, flag):
                                  for line in blocks[0].splitlines())
         assert blocks[1] == "missing.png: ERROR unreadable"
         return
-    monkeypatch.setattr(sys, "argv", ["detect", "-c", ini, "--weights", npz,
-                                      "--image", "a.png", *flag])
-    with pytest.raises(NotImplementedError, match=flag[0]):
+    images = []
+    for i in range(2):
+        images += ["--image", str(tmp / f"dp{i}.png")]
+        cv2.imwrite(images[-1], np.random.RandomState(20 + i).randint(
+            0, 256, (50, 70, 3), np.uint8))
+    printed = []
+    for extra in ([], flag):
+        monkeypatch.setattr(sys, "argv", ["detect", "-c", ini, "--weights",
+                                          npz, "--device", "cpu", *images,
+                                          "detect.threshold=0.005", *extra])
         detect.main()
+        printed.append(capsys.readouterr().out)
+    assert printed[0].startswith("dp0.png: ") and printed[1] == printed[0]
 
 
 def test_unported_weight_sources_raise(tmp_path):

@@ -292,20 +292,24 @@ def test_cli_cache_and_eval(eval_setup, monkeypatch, capsys):
 def test_cli_eval_unported_settings_raise(eval_setup, monkeypatch, capsys,
                                           override):
     """Each case of a setting the eval CLI once refused: ``use_int8`` now
-    runs and must report metrics; the others still raise (the test keeps
-    its name so each case keeps its identity)."""
+    runs and must report metrics; ``eval.data_parallel=on`` (one device)
+    and ``eval.distributed=1`` (one process) run as plain eval and must
+    report its metrics; ``use_ema`` on an ``.npz`` still raises (the test
+    keeps its name so each case keeps its identity)."""
     argv = ["-c", eval_setup["ini"], "--weights", eval_setup["npz"],
             "--device", "cpu", override]
-    if override == "detect.use_int8=1":  # ported: the int8 eval runs
+    if override != "detect.use_ema=1":  # ported: the eval runs
         run_cli("yolojax_torch.cli.eval", argv, monkeypatch)
         metrics = json.loads(capsys.readouterr().out.splitlines()[-1])
         assert metrics["num_images"] == N_IMAGES
         assert 0.0 <= metrics["map"] <= 1.0
+        if override != "detect.use_int8=1":
+            run_cli("yolojax_torch.cli.eval", argv[:-1], monkeypatch)
+            plain = json.loads(capsys.readouterr().out.splitlines()[-1])
+            assert metrics == plain
         return
     # EMA weights are read from training checkpoints, never from an .npz
-    error = ValueError if override == "detect.use_ema=1" else \
-        NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         run_cli("yolojax_torch.cli.eval", argv, monkeypatch)
 
 

@@ -67,7 +67,84 @@ def test_port_imports_without_jax():
             "yolojax_torch.cli.kmeans_anchors",
             "yolojax_torch.cli.demo_data_augmentation",
             "yolojax_torch.cli.detect_camera",
-            "yolojax_torch.utils.metrics"} <= names
+            "yolojax_torch.utils.metrics", "yolojax_torch.parallel",
+            "yolojax_torch.parallel.mesh", "yolojax_torch.parallel.distributed",
+            "yolojax_torch.parallel.collectives",
+            "yolojax_torch.parallel.sharding",
+            "yolojax_torch.parallel.launch",
+            "yolojax_torch.data.grain_loader"} <= names
+
+
+def test_multi_device_paths_run_without_jax(tmp_path):
+    """With jax and yolojax blocked: four ``gloo`` ranks (``launch.run``,
+    which imports this script in each) build a 2x2 mesh and take a ZeRO-1
+    and tensor-parallel step, and agree; the grain loader batches a cache
+    (grain uses jax when it can import it, and runs without)."""
+    script = tmp_path / "blocked_mesh.py"
+    script.write_text(_BLOCKED + textwrap.dedent("""
+        import json, os
+        import numpy as np, torch
+        from yolojax_torch.data.cache import build_cache
+        from yolojax_torch.data.grain_loader import make_loader
+        from yolojax_torch.data.loader import LoaderConfig, write_ppm
+        from yolojax_torch.models import get_model
+        from yolojax_torch.parallel import launch
+        from yolojax_torch.parallel.mesh import make_mesh, shard_batch
+        from yolojax_torch.parallel.sharding import Plan
+        from yolojax_torch.train import step
+
+
+        def step_on_mesh(rank, batch):
+            model = get_model("yolo2", "tiny", 1)
+            tx = step.make_optimizer(step.OptimizerConfig(ema_decay=0.9))
+            ts = step.init_train_state(model, tx,
+                                       torch.Generator().manual_seed(0), 32)
+            Plan(make_mesh(data=2, model=2), zero=True).shard(ts)
+            fn = step.make_train_step(model, tx, compute_dtype=torch.float32)
+            ts, m = fn(ts, shard_batch(ts.plan.mesh, batch), 1, 32)
+            return float(m["total"])
+
+
+        if __name__ == "__main__":
+            tmp = os.path.dirname(os.path.abspath(__file__))
+            os.makedirs(tmp + "/images")
+            images, anns = [], []
+            for i in range(4):
+                write_ppm(f"{tmp}/images/{i}.ppm", np.full((24, 32, 3), 9 * i,
+                                                          np.uint8))
+                images.append({"id": i, "file_name": f"{i}.ppm",
+                               "width": 32, "height": 24})
+                anns.append({"id": i + 1, "image_id": i, "category_id": 1,
+                             "bbox": [4, 4, 8, 8], "iscrowd": 0})
+            with open(tmp + "/ann.json", "w") as f:
+                json.dump({"images": images, "annotations": anns,
+                           "categories": [{"id": 1, "name": "aeroplane"}]}, f)
+            cache = build_cache(tmp + "/cache", "train", [{
+                "kind": "coco", "ann_json": tmp + "/ann.json",
+                "image_dir": tmp + "/images"}])
+            grain = make_loader(cache, LoaderConfig(batch_size=2,
+                                                    canvas_dim=32), "grain")
+            shapes = [b[0].shape for b in grain.epoch(0)]
+            assert shapes == [(2, 32, 32, 3)] * 2, shapes
+            loaded = [m for m, mod in sys.modules.items() if mod is not None
+                      and m.split(".")[0] in ("jax", "yolojax")]
+            assert not loaded, loaded
+            print("grain batches")
+            g = torch.Generator().manual_seed(0)
+            batch = (torch.rand((4, 32, 32, 3), generator=g),
+                     torch.full((4, 2, 4), 0.3),
+                     torch.zeros((4, 2), dtype=torch.int32),
+                     torch.ones((4, 2), dtype=torch.bool))
+            losses = launch.run(step_on_mesh, 4, args=(batch,),
+                                device="cpu", timeout=120)
+            assert len(set(losses)) == 1, losses
+            print("ranks agree", losses[0])
+    """))
+    proc = subprocess.run([sys.executable, str(script)], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=200)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "grain batches" in proc.stdout and "ranks agree" in proc.stdout
 
 
 def test_pyproject_lists_every_port_package():

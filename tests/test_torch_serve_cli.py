@@ -390,8 +390,25 @@ def test_calib_dir_without_images_fails_fast(ws, tmp_path):
 
 
 def test_data_parallel_not_ported(ws):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        build_server(ws["cfg"], "127.0.0.1", 0, weights=ws["npz"],
+    """``--data-parallel`` is ported: on a host with one device the daemon
+    serves on it (``devices`` 1 in /healthz and /stats) and answers as the
+    direct path does; with ``--artifact`` it is refused (an artifact owns
+    its device). The test keeps its name; tests/test_torch_parallel_eval.py
+    splits over two replicas."""
+    httpd, batcher, base = _start(ws["cfg"], weights=ws["npz"], batch=4,
+                                  window_ms=1, data_parallel=True)
+    try:
+        _, health = _get(base + "/healthz")
+        status, got = _post(base + "/detect", ws["blobs"][0])
+        _, stats = _get(base + "/stats")
+    finally:
+        _stop(httpd, batcher)
+    assert health["devices"] == stats["devices"] == 1
+    assert health["batch"] == 4 and status == 200
+    _assert_same(got["detections"], _direct(ws["cfg"], ws["npz"],
+                                            ws["imgs"][0]))
+    with pytest.raises(SystemExit, match="needs --weights"):
+        build_server(ws["cfg"], "127.0.0.1", 0, artifact="m.yjts",
                      data_parallel=True, device="cpu")
 
 

@@ -128,11 +128,39 @@ def test_config_files_parse_like_yolojax(path):
     "train.coordinator=localhost:1234", "queue.loader=grain",
     "train.num_processes=2", "train.profile_port=9999",
     "eval.data_parallel=on"])
-def test_unported_train_settings_raise(override):
-    cfg = load_config([os.path.join(REPO, "config.ini")],
-                      [override, "train.eval_steps=10"])
-    with pytest.raises(NotImplementedError, match=override.split("=")[0]):
-        train_cli.train(cfg, device="cpu")
+def test_unported_train_settings_raise(override, workspace, tmp_path):
+    """Each case of a setting the train CLI once refused (the test keeps
+    its name so each case keeps its identity). In one process a mesh
+    larger than its one device raises yolojax's ``make_mesh`` text, and
+    ``train.profile_port`` stays refused (torch has no profiler server);
+    the others must run a step and its in-training eval: ZeRO-1 without a
+    data axis, a coordinator or a process count alone (no process group),
+    the grain loader, and ``eval.data_parallel=on`` on one device.
+    tests/test_torch_parallel_train.py runs them over two processes."""
+    _, ini = workspace
+    cfg = load_config([ini], [override, "train.steps=1", "train.eval_steps=1",
+                              f"train.logdir={tmp_path}", "train.ema_decay=0",
+                              "train.keep_checkpoints=1"])
+    errors = {
+        "train.mesh_model=2": (ValueError,
+                               "1 devices not divisible by model=2"),
+        "train.mesh_data=2": (ValueError, "mesh 2x1 needs data\\*model = 2 "
+                                          "devices, have 1"),
+        "train.profile_port=9999": (NotImplementedError,
+                                    "train.profile_port")}
+    if override in errors:
+        error, match = errors[override]
+        with pytest.raises(error, match=match):
+            train_cli.train(cfg, device="cpu")
+        return
+    ts = train_cli.train(cfg, device="cpu")
+    assert ts.step == 1 and ts.plan is None
+    logdir = tmp_path / "yolo2_tiny"
+    with open(logdir / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows if "total" in r] == [1]
+    assert [r["step"] for r in rows if "val_map" in r] == [1]
+    shutil.rmtree(logdir)  # a checkpoint of tiny v2 is ~0.1 GB
 
 
 @pytest.fixture(scope="module")

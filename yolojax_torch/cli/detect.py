@@ -22,7 +22,9 @@ on the first ``detect.calib_images`` inputs; with ``detect.fuse_stem`` not
 off its conv0 + pool 1 is the packed int8 stem. ``--artifact`` serves an
 exported artifact instead (names, dim, thresholds and the letterbox style
 come from its header; ``--stdin`` needs one exported with batch 1).
-``--data-parallel`` is not ported yet (it raises NotImplementedError).
+``--data-parallel`` (several ``--image``s with ``--weights``) splits each
+batch over the process's CUDA devices, a replica of the program on each;
+with one device it warns and serves on that one.
 """
 
 from __future__ import annotations
@@ -39,7 +41,13 @@ import torch
 from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.data.augment import letterbox_host
 from yolojax_torch.data.loader import decode_image
-from yolojax_torch.eval.evaluator import make_infer_fn, serving_weights
+from yolojax_torch.eval.evaluator import (
+    data_parallel_infer,
+    local_devices,
+    make_infer_fn,
+    replicate,
+    serving_weights,
+)
 from yolojax_torch.nn.stem import fuse_stem
 from yolojax_torch.quantize.ptq import fuse_stem_int8, quantize_model
 from yolojax_torch.utils.cli import make_parser, setup
@@ -103,14 +111,38 @@ def build_serving(cfg, weights_path: str, calib_canvases=None, *,
     return names, dim, infer_fn, net, device
 
 
-def build_detector(cfg, weights_path: str, calib_canvases=None, device=None):
+def data_parallel_devices(device, data_parallel: bool) -> list:
+    """The devices a ``--data-parallel`` program splits a batch over: every
+    local CUDA device, or (with a warning when it was asked for) the one."""
+    device = resolve_device(device)
+    if not data_parallel:
+        return [device]
+    devices = local_devices(device)
+    if len(devices) > 1:
+        log.info("detector: data-parallel over %d local devices",
+                 len(devices))
+        return devices
+    log.warning("data_parallel requested but only 1 local device; serving "
+                "single-device")
+    return [device]
+
+
+def build_detector(cfg, weights_path: str, calib_canvases=None, device=None,
+                   data_parallel: bool = False):
     """Load weights and bind the serving program once. Returns
     (names, dim, infer(canvases) -> dict of numpy arrays). ``canvases``
     is an (N, dim, dim, 3) float batch, numpy or a tensor on any device.
     ``calib_canvases``: int8 calibration canvases (see
-    :func:`build_serving`)."""
+    :func:`build_serving`). ``data_parallel``: split each batch over the
+    local CUDA devices (the batch must split evenly; the int8 constants
+    are replicated too)."""
+    devices = data_parallel_devices(device, data_parallel)
     names, dim, infer_fn, net, device = build_serving(
         cfg, weights_path, calib_canvases, device=device)
+    if len(devices) > 1:
+        qm = infer_fn.qm
+        return names, dim, data_parallel_infer(
+            infer_fn, replicate(None if qm is not None else net, qm, devices))
 
     def infer(canvases):
         x = torch.as_tensor(canvases).to(device, torch.float32).contiguous()
@@ -271,7 +303,7 @@ def _annotate(raw_rgb, dets):
 def run_detect(cfg, weights_path: str,
                images: Sequence[Union[str, np.ndarray]],
                out_path: Optional[str] = None, show: bool = False,
-               device=None, detector=None):
+               device=None, detector=None, data_parallel: bool = False):
     """Detect on ``images``: file paths (binary PPM read with numpy, other
     formats with cv2) or decoded HWC RGB arrays. Prints one
     ``label: name score [x0, y0, x1, y1]`` line per detection and returns
@@ -279,7 +311,10 @@ def run_detect(cfg, weights_path: str,
     result, or is the (names, dim, infer, fixed_batch) of
     :func:`load_artifact_detector`. With ``detect.use_int8`` a new detector
     calibrates on the first ``detect.calib_images`` inputs, letterboxed as
-    the forward sees them."""
+    the forward sees them. ``data_parallel``: split each batch over the
+    local CUDA devices (several images; the batch rounds up to a multiple
+    of the device count)."""
+    data_parallel = data_parallel and len(images) > 1
     if detector is None:
         calib = None
         if cfg.detect.use_int8:
@@ -288,12 +323,15 @@ def run_detect(cfg, weights_path: str,
                                     stretch=cfg.detect.stretch)[0]
                      for j, image in enumerate(
                          images[:max(cfg.detect.calib_images, 1)])]
-        detector = build_detector(cfg, weights_path, calib, device=device)
+        detector = build_detector(cfg, weights_path, calib, device=device,
+                                  data_parallel=data_parallel)
     names, dim, infer, *fixed = detector
+    n_dev = getattr(infer, "devices", 1)
     # an artifact takes exactly its baked batch; a live program a fixed
     # batch too, which keeps the cuDNN plans warm across groups
     batch = fixed[0] if fixed else (
         1 if len(images) == 1 else min(max(cfg.eval.batch_size, 1), 32))
+    batch += (-batch) % n_dev  # data-parallel: a whole device multiple
     results = []
     for start in range(0, len(images), batch):
         group = images[start: start + batch]
@@ -433,14 +471,16 @@ def main():
                         help="serve: read image paths from stdin, one per "
                              "line; weights are loaded once")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported yet")
+                        help="split the detect batch over all local "
+                             "devices (several --image with --weights)")
     args = parser.parse_args()
     cfg = setup(args)
-    if args.data_parallel:
-        raise NotImplementedError("--data-parallel is not ported yet "
-                                  "(ROADMAP queue 1, multi-device)")
     if args.stdin and (args.image or args.show):
         parser.error("--stdin is exclusive with --image/--show")
+    if args.data_parallel and (args.stdin or args.artifact):
+        parser.error("--data-parallel applies to batched --image mode "
+                     "with --weights (artifacts own their placement; "
+                     "--stdin serves one image at a time)")
     if bool(args.weights) == bool(args.artifact):
         parser.error("exactly one of --weights or --artifact is required")
     detector = None
@@ -452,7 +492,8 @@ def main():
                    detector=detector)
     elif args.image:
         run_detect(cfg, args.weights, args.image, args.out or None,
-                   args.show, device=args.device, detector=detector)
+                   args.show, device=args.device, detector=detector,
+                   data_parallel=args.data_parallel)
     else:
         parser.error("one of --image or --stdin is required")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Batched validation: device inference + NMS on the device -> VOC mAP
 (and COCO metrics with ``--coco``) over a cached phase. Port of
-``cli/eval.py`` for one process on one device.
+``cli/eval.py``.
 
 Usage:
 
@@ -19,9 +19,13 @@ stem kernel. Convs run in f32 on the CPU and in bf16 on the card.
 ``detect.calib_images`` images (``detect.calib_percentile``,
 ``detect.quant_bits``). ``--artifact`` scores the baked program of an
 exported artifact (its thresholds, top-K, NMS and precision; ``detect.*``
-settings do not apply), exactly as a deployment host runs it. Not ported
-yet (they raise NotImplementedError): ``eval.data_parallel=on`` and
-``eval.distributed=1``.
+settings do not apply), exactly as a deployment host runs it.
+``eval.data_parallel`` (auto | on | off) splits each batch over the
+process's CUDA devices. Several processes (``train.coordinator`` /
+``train.num_processes`` / ``train.process_id``, as ``cli.train`` takes
+them): with ``eval.distributed=1`` each evaluates its strided shard of the
+cache and the detections are all-gathered; otherwise the primary alone
+evaluates while the others wait. The primary prints.
 """
 
 from __future__ import annotations
@@ -33,6 +37,11 @@ import math
 from yolojax_torch.cli.detect import load_artifact_detector, sync_artifact_cfg
 from yolojax_torch.data.cache import load_cache
 from yolojax_torch.eval.evaluator import EVAL_SCORE_THRESH, evaluate_model
+from yolojax_torch.parallel.distributed import (
+    maybe_initialize,
+    process_index,
+    sync_done,
+)
 from yolojax_torch.utils.cli import make_parser, setup
 from yolojax_torch.utils.restore import load_weights
 
@@ -60,7 +69,26 @@ def main():
     cfg = setup(args)
     if bool(args.weights) == bool(args.artifact):
         parser.error("exactly one of --weights or --artifact is required")
+    multi_process = maybe_initialize(
+        cfg.train.coordinator, cfg.train.num_processes, cfg.train.process_id,
+        device=args.device)
+    eval_dist = cfg.eval.distributed and multi_process and not args.artifact
+    if multi_process and not eval_dist and process_index() != 0:
+        sync_done()  # the primary evaluates alone; wait for it
+        return None
+    try:
+        metrics, names = _evaluate(cfg, args, eval_dist)
+    finally:
+        if multi_process and not eval_dist:
+            # release the waiting processes even when the primary fails
+            sync_done()
+    if multi_process and process_index() != 0:
+        return metrics  # the same global metrics; the primary prints
+    _print_metrics(cfg, args, names, metrics)
+    return metrics
 
+
+def _evaluate(cfg, args, distributed: bool):
     cache = load_cache(cfg.cache.basedir, args.phase)
     # shared verbatim by both branches: a drift between them would skew
     # the live-vs-artifact metric parity the artifact mode exists to show
@@ -112,9 +140,13 @@ def main():
             calib_percentile=cfg.detect.calib_percentile,
             quant_bits=cfg.detect.quant_bits,
             data_parallel=cfg.eval.data_parallel_flag(),
-            distributed=cfg.eval.distributed,
+            distributed=distributed,
             **shared,
         )
+    return metrics, names
+
+
+def _print_metrics(cfg, args, names, metrics) -> None:
     for c, name in enumerate(names):
         if f"ap_{c}" in metrics:
             print(f"AP {name:>16s}: {metrics[f'ap_{c}']:.4f}")
@@ -138,7 +170,6 @@ def main():
         k: (None if isinstance(v, float) and math.isnan(v) else v)
         for k, v in metrics.items()
     }))
-    return metrics
 
 
 if __name__ == "__main__":

@@ -15,8 +15,8 @@ identity-BN ``.npz`` that every surface loads:
 Runs in f32 with TF32 off, on the card unless ``--device`` names another
 device. The augmentation and dropout draw from generators seeded by
 ``train.seed + 17`` and the step (``train/step.py::step_seeds``), not
-JAX's ``PRNGKey(seed + 17)``. ``queue.loader=grain`` is not ported (it
-raises NotImplementedError).
+JAX's ``PRNGKey(seed + 17)``. ``queue.loader=grain`` reads the train
+cache through ``data/grain_loader.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.convert.store import save_network_npz
 from yolojax_torch.data.augment import resize
 from yolojax_torch.data.cache import load_cache
-from yolojax_torch.data.loader import Loader
+from yolojax_torch.data.grain_loader import make_loader
 from yolojax_torch.quantize.ptq import calibrate
 from yolojax_torch.quantize.qat import (
     QatConfig,
@@ -54,9 +54,6 @@ def run_qat(cfg, weights: str, output: str, qcfg: QatConfig, *,
             device=None):
     """Fine-tune ``weights`` under fake quantization and write the
     identity-BN ``.npz`` to ``output``. Returns (first loss, last loss)."""
-    if cfg.queue.loader == "grain":
-        raise NotImplementedError("queue.loader=grain is not ported yet "
-                                  "(ROADMAP queue 1, multi-device)")
     bits = bits or cfg.detect.quant_bits
     if not 2 <= bits <= 8:
         raise SystemExit(f"--bits must be in [2, 8], got {bits}")
@@ -66,7 +63,7 @@ def run_qat(cfg, weights: str, output: str, qcfg: QatConfig, *,
     dim = cfg.model.dim
 
     cache = load_cache(cfg.cache.basedir, "train")
-    loader = Loader(cache, cfg.queue)
+    loader = make_loader(cache, cfg.queue, cfg.queue.loader)
     if len(loader) == 0:
         raise SystemExit(
             f"cache has {len(cache)} images < batch_size "

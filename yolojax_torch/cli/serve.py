@@ -11,7 +11,7 @@ API:
   GET  /healthz  -> {status, dim, batch, window_ms, backend, devices,
                      pipeline_depth, names, stats}
   GET  /stats    -> batching stats {images, batches, mean_fill, errors,
-                    rejected, queued}
+                    rejected, queued, devices}
   POST /detect   <- raw image bytes (8-bit binary PPM without cv2; any
                     cv2-decodable format where cv2 is installed)
                  -> {"detections": [{"name", "class", "score",
@@ -25,7 +25,10 @@ Usage: python -m yolojax_torch.cli.serve -c config.ini --weights W --port 8628
 
 Prints ``READY http://host:port`` once it accepts requests; SIGTERM (or
 Ctrl-C) drains the queue and exits 0 with the final stats in the log.
-``--data-parallel`` is not ported (it raises NotImplementedError).
+``--data-parallel`` splits each dispatched batch over the process's CUDA
+devices (the batch rounds up to a device multiple; ``devices`` in
+``/healthz`` and ``/stats`` says how many); with one device it warns and
+serves on that one.
 """
 
 from __future__ import annotations
@@ -88,11 +91,14 @@ def build_server(cfg, host: str, port: int, weights: str = "",
     Returns (httpd, batcher); ``httpd.serve_forever()`` runs it,
     ``httpd.server_address`` carries the bound port (port 0: an ephemeral
     one). One warm-up batch runs here (the kernels build, cuDNN picks its
-    plans), so the first request does not pay for it."""
-    if data_parallel:
-        raise NotImplementedError("--data-parallel is not ported yet "
-                                  "(ROADMAP queue 1, multi-device)")
+    plans), so the first request does not pay for it. ``data_parallel``:
+    split each dispatched batch over the local CUDA devices (the batch is
+    rounded up to a device multiple)."""
+    devices = 1
     if artifact:
+        if data_parallel:
+            raise SystemExit("--data-parallel needs --weights (an exported "
+                             "artifact owns its device placement)")
         (names, dim, infer, art_batch), meta = load_artifact_detector(
             artifact, device)
         cfg = sync_artifact_cfg(cfg, meta)
@@ -106,8 +112,15 @@ def build_server(cfg, host: str, port: int, weights: str = "",
         calib = _load_calib(cfg, calib_dir) if (
             calib_dir and cfg.detect.use_int8) else None
         backend = resolve_device(device).type
-        names, dim, infer = build_detector(cfg, weights, calib, device=device)
+        names, dim, infer = build_detector(cfg, weights, calib, device=device,
+                                           data_parallel=data_parallel)
         batch = batch or min(max(cfg.eval.batch_size, 1), 32)
+        devices = getattr(infer, "devices", 1)
+        if batch % devices:
+            dp_batch = batch + (-batch) % devices
+            log.info("data-parallel: batch %d -> %d (%d local devices)",
+                     batch, dp_batch, devices)
+            batch = dp_batch
 
     filler = np.full((dim, dim, 3), 0.5, np.float32)
     log.info("warm-up: one batch of %d at dim %d", batch, dim)
@@ -126,7 +139,7 @@ def build_server(cfg, host: str, port: int, weights: str = "",
             "batch": batch,
             "window_ms": window_ms,
             "backend": backend,
-            "devices": 1,
+            "devices": devices,
             "pipeline_depth": pipeline_depth,
             "names": list(names),
             "stats": batcher.stats(),
@@ -151,7 +164,7 @@ def build_server(cfg, host: str, port: int, weights: str = "",
             if self.path == "/healthz":
                 self._json(200, health())
             elif self.path == "/stats":
-                self._json(200, batcher.stats())
+                self._json(200, {**batcher.stats(), "devices": devices})
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
 
@@ -243,7 +256,8 @@ def main():
                         help="directory of images for int8 activation "
                              "calibration (detect.use_int8=1)")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="not ported yet")
+                        help="split each batch over all local devices "
+                             "(the batch rounds up to a device multiple)")
     parser.add_argument("--pipeline-depth", type=int, default=1,
                         help="batches allowed in flight at once (2 "
                              "overlaps host result scatter with device "

@@ -86,7 +86,10 @@ class TrainConfig:
     profile_port: int = 0          # live profiler server: refused in torch
     debug_nans: bool = False       # autograd anomaly detection
     halt_on_nonfinite: bool = True # stop + forensic save on a NaN/inf loss
-    # multi-device: not ported (values other than these raise)
+    # multi-device, one process per device (parallel/): the (data, model)
+    # mesh over the processes (mesh_data 0: the processes left after
+    # mesh_model), ZeRO-1 optimizer sharding over data, and the process
+    # group's rendezvous (or JAX_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID)
     mesh_data: int = 0
     mesh_model: int = 1
     zero: bool = False
@@ -117,8 +120,8 @@ class EvalConfig:
     batch_size: int = 32
     map_iou: float = 0.5
     max_detections: int = 100
-    data_parallel: str = "auto"    # auto|on|off; only one device is ported
-    distributed: bool = False      # multi-host eval (not ported yet)
+    data_parallel: str = "auto"    # auto|on|off: split over local devices
+    distributed: bool = False      # multi-process eval: a shard per process
 
     def data_parallel_flag(self):
         """Map the INI string onto evaluate_model's tri-state arg."""

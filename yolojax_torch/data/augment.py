@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -239,11 +239,22 @@ def apply_color_jitter(images: torch.Tensor,
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor,
                   boxes: torch.Tensor, valid: torch.Tensor, out_dim: int,
-                  cfg: AugmentConfig = AugmentConfig()):
+                  cfg: AugmentConfig = AugmentConfig(),
+                  rows: Optional[Tuple[int, int]] = None):
     """Draw per-image parameters from ``generator`` and apply them:
     (N, H, W, 3) canvases in [0, 1] -> (N, out_dim, out_dim, 3), boxes
-    (N, G, 4) xywh and valid (N, G) moved with them."""
-    params = draw_params(generator, images.shape[0], cfg, images.device)
+    (N, G, 4) xywh and valid (N, G) moved with them. ``rows`` = (first
+    row, global rows): the images are rows ``first .. first + N`` of a
+    global batch, and get the draws of those rows of the global batch's
+    draw (a data-parallel rank's share of one device's step)."""
+    n = images.shape[0]
+    if rows is None:
+        params = draw_params(generator, n, cfg, images.device)
+    else:
+        full = draw_params(generator, rows[1], cfg, images.device)
+        params = AugmentParams(**{
+            f.name: getattr(full, f.name)[rows[0]: rows[0] + n]
+            for f in dataclasses.fields(AugmentParams)})
     images, boxes, valid = apply_geometry(images, boxes, valid, out_dim,
                                           params, cfg)
     return apply_color_jitter(images, params), boxes, valid

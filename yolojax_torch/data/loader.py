@@ -45,8 +45,8 @@ class LoaderConfig:
     stretch: bool = False   # plain resize instead of letterbox
     drop_remainder: bool = True
     use_native: bool = True  # C++ decode pool when libyolodata.so loads
-    loader: str = "native"   # native (threads + C++ pool); grain: not ported
-    grain_workers: int = 0   # grain worker processes (grain is not ported)
+    loader: str = "native"   # native (threads + C++ pool) | grain
+    grain_workers: int = 0   # grain worker processes (0: decode inline)
     # multi-host: each process loads a disjoint slice of every epoch
     shard_index: int = 0
     shard_count: int = 1

@@ -1,23 +1,29 @@
 """The serving program (forward + decode + top-K + NMS on the device) and
 batched validation over a cached phase -> host VOC/COCO mAP.
 
-Port of ``yolojax/eval/evaluator.py`` for one process on one device. Per
-batch: the host loader's canvases go to the device, the serving program
-runs there (the fused-stem and NMS kernels on the card), and only the
-fixed-shape outputs come back; the host un-pads them into detection lists
-and scores them with ``eval/voc_map.py``. With ``int8`` the trunk runs
-quantized (``quantize/ptq.py``), calibrated on the phase's first images.
+Port of ``yolojax/eval/evaluator.py``. Per batch: the host loader's
+canvases go to the device, the serving program runs there (the fused-stem
+and NMS kernels on the card), and only the fixed-shape outputs come back;
+the host un-pads them into detection lists and scores them with
+``eval/voc_map.py``. With ``int8`` the trunk runs quantized
+(``quantize/ptq.py``), calibrated on the phase's first images.
 ``infer_override`` scores an exported artifact's program instead
-(``fixed_batch``: its baked batch). Data-parallel and multi-host eval raise
-:class:`NotImplementedError`.
+(``fixed_batch``: its baked batch).
+
+``data_parallel`` splits each batch over the process's CUDA devices, one
+replica of the program on each (with one device it is the plain path);
+``distributed`` under a process group has every process evaluate its
+strided shard of the cache and all-gather the detection and ground-truth
+rows, so every process scores the same global lists.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import logging
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +36,7 @@ from yolojax_torch.eval.voc_map import compute_coco_map, compute_map
 from yolojax_torch.models import Model
 from yolojax_torch.nn.layers import Network, StemLayer
 from yolojax_torch.nn.stem import fuse_stem
+from yolojax_torch.parallel import distributed as dist_util
 from yolojax_torch.postprocess.nms import postprocess_v1, postprocess_v2
 from yolojax_torch.quantize.ptq import (
     QuantizedModel,
@@ -143,28 +150,122 @@ def _dump_coco_json(path, detections, ground_truth, num_images,
              len(results), path)
 
 
-def _refuse_unported(data_parallel, distributed) -> None:
-    for on, what in (
-        (data_parallel, "eval.data_parallel=on: multi-device eval"),
-        (distributed, "eval.distributed: multi-host eval"),
-    ):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+def local_devices(device) -> List[torch.device]:
+    """The devices of this process that a data-parallel program splits a
+    batch over: every CUDA device for a CUDA ``device``, else ``device``
+    alone. A process of a multi-process group owns its one device (one
+    process per device), so it splits over nothing else."""
+    device = torch.device(device)
+    if device.type == "cuda" and dist_util.process_count() == 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
-def _eval_loader(cache, batch_size: int, input_dim: int,
-                 stretch: bool) -> Loader:
+def data_parallel_infer(infer, replicas):
+    """``canvases -> dict of numpy``: each batch split into equal row
+    blocks, block i run by ``infer(net_i, block, qm=qm_i)`` on
+    ``replicas[i] = (device_i, net_i, qm_i)``, the outputs concatenated in
+    order. Every block is dispatched before any result is read, so the
+    devices run at once. The batch must split evenly; ``run.devices`` is
+    the device count."""
+    n = len(replicas)
+
+    def run(canvases) -> Dict[str, np.ndarray]:
+        x = torch.as_tensor(canvases)
+        if x.shape[0] % n:
+            raise ValueError(f"data-parallel serving needs batch % {n} == 0, "
+                             f"got batch {x.shape[0]}")
+        outs = []
+        for (dev, net, qm), block in zip(replicas, x.chunk(n)):
+            ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+                   else contextlib.nullcontext())
+            with ctx:
+                outs.append(infer(net, block.to(dev, torch.float32)
+                                  .contiguous(), qm=qm))
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in outs[0]}
+
+    run.devices = n
+    return run
+
+
+def replicate(net, qm, devices) -> list:
+    """(device, net, qm) of the program on each of ``devices``: ``net``
+    (already serving weights) copied, or ``qm`` moved."""
+    out = []
+    for dev in devices:
+        out.append((dev, None if net is None else copy.deepcopy(net).to(dev),
+                    None if qm is None else qm.to(dev)))
+    return out
+
+
+def _eval_loader(cache, batch_size: int, input_dim: int, stretch: bool,
+                 shard_index: int = 0, shard_count: int = 1) -> Loader:
     return Loader(cache, LoaderConfig(
         batch_size=batch_size, canvas_dim=input_dim, max_boxes=64,
-        stretch=stretch, drop_remainder=False, num_threads=8))
+        stretch=stretch, drop_remainder=False, num_threads=8,
+        shard_index=shard_index, shard_count=shard_count))
+
+
+def _allgather_shards(detections, ground_truth, gt_difficult, num_images,
+                      n_proc):
+    """Every process's eval shard -> the global lists (yolojax's
+    ``_allgather_shards``). Detections and ground truth are packed into
+    f32 rows of 7 (GT rows carry the difficult flag), zero-padded to the
+    largest count, and all-gathered; a local image id becomes ``local *
+    n_proc + rank``, the image's index in the cache under the strided
+    split."""
+    rank = dist_util.process_index()
+    # ids ride in f32 rows: above 2^24 integers lose precision
+    if num_images * n_proc >= 2 ** 24:
+        raise ValueError(
+            f"distributed eval id space {num_images} x {n_proc} processes "
+            f"exceeds float32 integer range (2^24); shard the eval set")
+
+    def pack(rows, width):
+        if not rows:
+            return np.zeros((0, width), np.float32)
+        return np.stack([np.concatenate([[float(r[0]) * n_proc + rank],
+                                         np.asarray(r[1:-1], np.float32),
+                                         np.asarray(r[-1], np.float32)])
+                         for r in rows]).astype(np.float32)
+
+    det = pack(detections, 7)  # gid, cls, score, box[4]
+    gt = pack([(img, cls, float(diff), box)
+               for (img, cls, box), diff in zip(ground_truth, gt_difficult)],
+              7)                # gid, cls, difficult, box[4]
+    counts = dist_util.all_gather_numpy(
+        np.asarray([det.shape[0], gt.shape[0], num_images], np.int64))
+    cap_d, cap_g = int(counts[:, 0].max()), int(counts[:, 1].max())
+
+    def gather(arr, cap):
+        # cap is a global max: every process takes the same branch
+        pad = np.zeros((cap - arr.shape[0], 7), np.float32)
+        return dist_util.all_gather_numpy(np.concatenate([arr, pad]))
+
+    all_det = gather(det, cap_d) if cap_d else None
+    all_gt = gather(gt, cap_g) if cap_g else None
+    detections = [
+        (int(r[0]), int(r[1]), float(r[2]), r[3:7])
+        for p in range(n_proc) for r in all_det[p, : int(counts[p, 0])]
+    ] if cap_d else []
+    gt_rows = [
+        r for p in range(n_proc) for r in all_gt[p, : int(counts[p, 1])]
+    ] if cap_g else []
+    ground_truth = [(int(r[0]), int(r[1]), r[3:7]) for r in gt_rows]
+    gt_difficult = [bool(r[2]) for r in gt_rows]
+    return detections, ground_truth, gt_difficult, int(counts[:, 2].sum())
 
 
 def _live_program(model, net, cache, device, *, input_dim, batch_size,
                   stretch, fold, fuse_stem_impl, int8, calib_images,
                   calib_percentile, quant_bits, compute_dtype, score_thresh,
-                  nms_iou, top_k, use_pallas, candidates):
+                  nms_iou, top_k, use_pallas, candidates, data_parallel):
     """The serving program of ``evaluate_model``'s settings on a copy of
-    ``net``: canvases (numpy) -> dict of numpy arrays."""
+    ``net``: canvases (numpy) -> dict of numpy arrays; with
+    ``data_parallel`` and more than one local device, replicated on each
+    (returns the program and its device count)."""
     device = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = (torch.float32 if device.type == "cpu"
@@ -193,12 +294,17 @@ def _live_program(model, net, cache, device, *, input_dim, batch_size,
                           iou_thresh=nms_iou, top_k=top_k,
                           use_pallas=use_pallas, candidates=candidates,
                           compute_dtype=compute_dtype, qm=qm)
+    devices = local_devices(device) if data_parallel else [device]
+    if len(devices) > 1:
+        log.info("eval: data-parallel over %d local devices", len(devices))
+        return data_parallel_infer(
+            infer, replicate(None if int8 else net, qm, devices)), len(devices)
 
     def run(images: np.ndarray) -> Dict[str, np.ndarray]:
         x = torch.from_numpy(images).to(device)
         return {k: v.cpu().numpy() for k, v in infer(net, x).items()}
 
-    return run
+    return run, 1
 
 
 def evaluate_model(
@@ -228,8 +334,8 @@ def evaluate_model(
     calib_images: int = 8,  # int8 activation-calibration image count
     calib_percentile: float = 100.0,  # int8 |act| percentile (100 = absmax)
     quant_bits: int = 8,  # int8 code width (detect.quant_bits; <8 coarsens)
-    data_parallel: Optional[bool] = None,  # None/False: the one device
-    distributed: bool = False,
+    data_parallel: Optional[bool] = None,  # None: all local devices
+    distributed: bool = False,  # multi-process: shard the cache per process
     infer_override=None,  # callable(canvases) -> dict of numpy arrays
     fixed_batch: Optional[int] = None,  # the artifact's batch (pad to it)
     num_classes: Optional[int] = None,  # required when model is None
@@ -244,25 +350,50 @@ def evaluate_model(
     yolojax does. ``infer_override`` (an exported artifact's program, see
     ``cli/detect.py::load_artifact_detector``) replaces the model: its
     thresholds, top-K, NMS and precision are baked, ``model`` and ``net``
-    may be None, and each batch is padded to ``fixed_batch``."""
-    _refuse_unported(data_parallel, distributed)
+    may be None, and each batch is padded to ``fixed_batch``.
+
+    ``data_parallel`` (None: when the process has more than one device)
+    splits each batch over the local devices; int8 stays on one device
+    unless it is True, and an artifact never splits (it owns its device).
+    ``distributed=True`` under a process group of more than one process:
+    every process evaluates its strided shard of the cache, the rows are
+    all-gathered, and every process returns the same global metrics; ALL
+    processes must call it together. With one process it is plain eval."""
+    n_proc = dist_util.process_count()
+    rank = dist_util.process_index()
+    distributed = distributed and n_proc > 1
     n_cls = model.num_classes if model is not None else num_classes
     if n_cls is None:
         raise ValueError("num_classes is required when model is None")
+    n_dev = 1
     if infer_override is not None:
+        if distributed:
+            raise ValueError("artifact eval is single-process (the baked "
+                             "program has no shard axis); unset "
+                             "eval.distributed")
         if fixed_batch:
             batch_size = fixed_batch  # loader batches must match the program
         run = infer_override
     else:
-        run = _live_program(
+        if int8 and data_parallel is None:
+            data_parallel = False  # int8 serving is latency-oriented
+        run, n_dev = _live_program(
             model, net, cache, device, input_dim=input_dim,
             batch_size=batch_size, stretch=stretch, fold=fold,
             fuse_stem_impl=fuse_stem_impl, int8=int8,
             calib_images=calib_images, calib_percentile=calib_percentile,
             quant_bits=quant_bits, compute_dtype=compute_dtype,
             score_thresh=score_thresh, nms_iou=nms_iou, top_k=top_k,
-            use_pallas=use_pallas, candidates=candidates)
-    loader = _eval_loader(cache, batch_size, input_dim, stretch)
+            use_pallas=use_pallas, candidates=candidates,
+            data_parallel=data_parallel is not False)
+    loader = _eval_loader(cache, batch_size, input_dim, stretch,
+                          rank if distributed else 0,
+                          n_proc if distributed else 1)
+    # cache indices in loader order (epoch 0, no shuffle, strided shard),
+    # to find each image's difficult GT
+    eval_order = np.arange(len(cache))
+    if distributed:
+        eval_order = eval_order[rank::n_proc]
 
     detections = []
     ground_truth = []
@@ -273,10 +404,12 @@ def evaluate_model(
         if max_batches is not None and bi >= max_batches:
             break
         n_actual = images.shape[0]
-        if fixed_batch and n_actual < fixed_batch:
+        pad = (fixed_batch - n_actual if fixed_batch
+               else (-n_actual) % n_dev)
+        if pad > 0:
             # a short last batch: pad to the program's shape, drop the extras
             images = np.concatenate([images, np.zeros(
-                (fixed_batch - n_actual,) + images.shape[1:], images.dtype)])
+                (pad,) + images.shape[1:], images.dtype)])
         out = {k: v[:n_actual] for k, v in run(images).items()}
         images = images[:n_actual]
         # GT is already in canvas coords, consistent with detections; the
@@ -288,10 +421,9 @@ def evaluate_model(
                  np.asarray([cy - h / 2, cx - w / 2,
                              cy + h / 2, cx + w / 2])))
         gt_difficult.extend([False] * (len(ground_truth) - len(gt_difficult)))
-        # the difficult GT, which the loader's training view leaves out;
-        # eval order is cache order (epoch 0, no shuffle, one shard)
+        # the difficult GT, which the loader's training view leaves out
         for k in range(images.shape[0]):
-            ci = bi * batch_size + k
+            ci = int(eval_order[bi * batch_size + k])
             _, cb, cc, cd = cache.example_eval(ci)
             if not cd.any():
                 continue
@@ -317,9 +449,13 @@ def evaluate_model(
                 (img_id + k, int(out["classes"][k, d]),
                  float(out["scores"][k, d]), out["boxes"][k, d]))
         img_id += images.shape[0]
-    log.info("eval: %d images, %d detections, %d gt boxes",
-             img_id, len(detections), len(ground_truth))
-    if dump_path:
+    log.info("eval: %d images, %d detections, %d gt boxes%s",
+             img_id, len(detections), len(ground_truth),
+             f" (shard {rank}/{n_proc})" if distributed else "")
+    if distributed:
+        detections, ground_truth, gt_difficult, img_id = _allgather_shards(
+            detections, ground_truth, gt_difficult, img_id, n_proc)
+    if dump_path and rank == 0:
         _dump_coco_json(dump_path, detections, ground_truth, img_id,
                         n_cls, float(input_dim), class_names,
                         gt_difficult=gt_difficult)

@@ -54,11 +54,12 @@ class Model:
     def apply(self, net: Network, images: torch.Tensor, *,
               compute_dtype: torch.dtype = torch.bfloat16,
               train: bool = False,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              mesh=None):
         """images: (N, H, W, 3) in [0, 1]. Returns the f32 head; in train
         mode ``(head, new_bn_state)`` (see :meth:`Network.forward`)."""
         out = net(images, compute_dtype=compute_dtype, train=train,
-                  generator=generator)
+                  generator=generator, mesh=mesh)
         if train:
             out, new_state = out
         if self.kind == "v2":

@@ -27,6 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolojax_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+    gather_from_model,
+)
+
 # ---------------------------------------------------------------------------
 # Layer specs (copied from yolojax/nn/layers.py)
 # ---------------------------------------------------------------------------
@@ -157,6 +163,25 @@ def space_to_depth(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
     return x.reshape(n, h // s, w // s, c * s * s)
 
 
+def _batch_moments(y: torch.Tensor, mesh=None):
+    """Per-channel mean and biased variance of NHWC ``y`` over (N, H, W):
+    two passes, the mean first. Over a mesh's data ranks the sums and the
+    count are all-reduced (differentiably), so the moments are the global
+    batch's."""
+    if mesh is None:
+        m = y.mean(dim=(0, 1, 2))
+        return m, torch.square(y - m).mean(dim=(0, 1, 2))
+    count = torch.full((1,), float(y.shape[0] * y.shape[1] * y.shape[2]),
+                       device=y.device)
+    s = all_reduce_sum(torch.cat([y.sum(dim=(0, 1, 2)), count]),
+                       mesh.data_group)
+    n = s[-1]
+    m = s[:-1] / n
+    v = all_reduce_sum(torch.square(y - m).sum(dim=(0, 1, 2)),
+                       mesh.data_group) / n
+    return m, v
+
+
 # ---------------------------------------------------------------------------
 # Network
 # ---------------------------------------------------------------------------
@@ -240,7 +265,8 @@ class Network(nn.Module):
                 leaky_alpha: float = 0.1,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                bn_momentum: float = 0.99):
+                bn_momentum: float = 0.99,
+                mesh=None):
         """images (N, H, W, C) -> f32 output (NHWC, or (N, F) after a
         dense head). Conv outputs are stored in ``compute_dtype``; the
         bias/BN + leaky epilogue runs in f32 and is cast back.
@@ -255,7 +281,17 @@ class Network(nn.Module):
         running variance with the unbiased estimate, and its ``momentum``
         means 1 - ``bn_momentum``. Dropout keeps each unit with
         probability 1 - rate, drawn from ``generator``, and scales the kept
-        ones by 1 / (1 - rate)."""
+        ones by 1 / (1 - rate).
+
+        ``mesh`` (``parallel/mesh.py``): this rank's part of a step on a
+        mesh. Over data ranks, train-mode BN takes the global batch's
+        statistics (per-channel sums and counts all-reduced, with their
+        gradients) and dropout draws the global batch's mask and keeps
+        this rank's rows. Over model ranks, a conv whose kernel holds a
+        slice of its output channels (``parallel/sharding.py``) computes
+        that slice, and the slices are gathered after its epilogue."""
+        dp = mesh is not None and mesh.data > 1
+        tp = mesh is not None and mesh.model > 1
         x = images
         outputs = []
         new_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -279,12 +315,14 @@ class Network(nn.Module):
                 pass
             elif isinstance(spec, ConvSpec):
                 layer = getattr(self, _conv_name(i))
+                tp_layer = tp and layer.w.shape[0] != spec.out
+                if tp_layer:
+                    x = copy_to_model(x, mesh)
                 y = conv2d(x, layer.w, spec.stride,
                            compute_dtype=compute_dtype).float()
                 if spec.bn:
                     if train:
-                        m = y.mean(dim=(0, 1, 2))
-                        v = torch.square(y - m).mean(dim=(0, 1, 2))
+                        m, v = _batch_moments(y, mesh if dp else None)
                         new_state[_conv_name(i)] = (
                             layer.mean * bn_momentum
                             + m.detach() * (1 - bn_momentum),
@@ -298,6 +336,8 @@ class Network(nn.Module):
                     y = y + layer.b.float()
                 if spec.act == "leaky":
                     y = leaky_relu(y, leaky_alpha)
+                if tp_layer:  # gathered in f32: gloo takes no bf16 sums
+                    y = gather_from_model(y, mesh)
                 x = y.to(compute_dtype)
             elif isinstance(spec, MaxPoolSpec):
                 x = max_pool(x, spec.size, spec.stride)
@@ -312,7 +352,10 @@ class Network(nn.Module):
                 layer = getattr(self, _dense_name(i))
                 y = F.linear(x.to(compute_dtype),
                              layer.w.to(compute_dtype)).float()
-                y = y + layer.b.float()
+                b = layer.b
+                if tp and b.shape[0] != spec.out:  # a long bias is split
+                    b = gather_from_model(b, mesh)
+                y = y + b.float()
                 if spec.act == "leaky":
                     y = leaky_relu(y, leaky_alpha)
                 x = y.to(compute_dtype)
@@ -321,8 +364,14 @@ class Network(nn.Module):
                     if generator is None:
                         raise ValueError("dropout in train mode needs a "
                                          "generator")
-                    keep = torch.rand(x.shape, generator=generator,
-                                      device=x.device) < 1.0 - spec.rate
+                    shape, rows = x.shape, slice(None)
+                    if dp:  # the global batch's mask, this rank's rows
+                        n = x.shape[0]
+                        shape = (n * mesh.data,) + tuple(x.shape[1:])
+                        rows = slice(mesh.data_index * n,
+                                     (mesh.data_index + 1) * n)
+                    keep = torch.rand(shape, generator=generator,
+                                      device=x.device)[rows] < 1.0 - spec.rate
                     x = torch.where(keep, x / (1.0 - spec.rate),
                                     torch.zeros((), dtype=x.dtype,
                                                 device=x.device))

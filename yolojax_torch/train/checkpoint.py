@@ -13,6 +13,15 @@ never taken as the latest. The format is the port's own; ``.npz``
 ``should_save`` follows Orbax's ``CheckpointManager``: a step saves when it
 is past the latest checkpoint and is a multiple of ``save_interval_steps``,
 or when no checkpoint exists yet; the newest ``max_to_keep`` are kept.
+
+In a multi-process run every rank makes a Checkpointer with ``primary``
+(True on rank 0 only) and calls ``save`` at the same steps: a train state
+split over ranks (``TrainState.plan``) is gathered to its full layout, a
+collective every rank enters, and only the primary writes. Such a
+Checkpointer reads the disk once, when it is made, and then keeps the
+latest step itself, so every rank decides ``should_save`` alike while the
+primary writes. A restore loads the full state and cuts it into the run's
+mesh, whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -41,7 +50,10 @@ def _to(tree: Any, device) -> Any:
 
 def _tree(ts) -> Dict[str, Any]:
     """A :class:`~yolojax_torch.train.step.TrainState` as the nested dict
-    a checkpoint holds, on the state's device."""
+    a checkpoint holds, on the state's device (gathered from every rank's
+    pieces when the state is split)."""
+    if ts.plan is not None and ts.plan.sharded:
+        return ts.plan.gather(ts)
     return {"step": int(ts.step), "params": dict(ts.net.named_parameters()),
             "bn_state": bn_buffers(ts.net), "opt_state": ts.opt_state}
 
@@ -57,11 +69,14 @@ def _layout(tree: Any) -> Any:
 
 class Checkpointer:
     def __init__(self, directory: str, *, max_to_keep: Optional[int] = 5,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1,
+                 primary: Optional[bool] = None):
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
+        self.primary = primary  # None: one process; else rank 0 or not
+        self._latest = self._scan_latest()
 
     def steps(self):
         """Sorted steps of the complete checkpoints."""
@@ -69,9 +84,14 @@ class Checkpointer:
                       if name.isdigit() and os.path.isfile(
                           os.path.join(self._dir, name, STATE_FILE)))
 
-    def latest_step(self) -> Optional[int]:
+    def _scan_latest(self) -> Optional[int]:
         steps = self.steps()
         return steps[-1] if steps else None
+
+    def latest_step(self) -> Optional[int]:
+        if self.primary is None:
+            return self._scan_latest()
+        return self._latest
 
     def should_save(self, step: int) -> bool:
         """True iff ``save(step)`` would write."""
@@ -85,11 +105,15 @@ class Checkpointer:
         step = int(step)
         if not force and not self.should_save(step):
             return False
+        payload = _tree(train_state)
+        self._latest = step
+        if self.primary is False:
+            return True
         final = os.path.join(self._dir, str(step))
         if os.path.exists(final):
             raise ValueError(f"checkpoint step {step} already exists in "
                              f"{self._dir}")
-        payload = _to(_tree(train_state), "cpu")
+        payload = _to(payload, "cpu")
         tmp = os.path.join(self._dir, f".{step}.tmp-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -118,8 +142,10 @@ class Checkpointer:
         step, payload = self.restore_latest_raw()
         if step is None:
             return None, template
-        want = _tree(template)
-        if _layout(payload) != _layout(want):
+        plan = template.plan
+        want = (plan.full_shapes(template) if plan is not None
+                else _layout(_tree(template)))
+        if _layout(payload) != want:
             # the usual cause: train.ema_decay or train.grad_accum changed,
             # which adds or removes optimizer-state entries
             raise RuntimeError(
@@ -130,6 +156,10 @@ class Checkpointer:
                 f"resume with the original flags or start a fresh logdir. "
                 f"Saved optimizer state: {sorted(payload['opt_state'])}; "
                 f"current: {sorted(want['opt_state'])}")
+        if plan is not None:
+            plan.load(template, payload)
+            log.info("restored checkpoint step=%d from %s", step, self._dir)
+            return step, template
         net = template.net
         device = next(net.parameters()).device
         net.load_state_dict({**payload["params"], **payload["bn_state"]},

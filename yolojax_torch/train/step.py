@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from yolojax_torch.data.augment import AugmentConfig, augment_batch, resize
 from yolojax_torch.models import Model
 from yolojax_torch.nn.layers import Network
+from yolojax_torch.parallel.mesh import mesh_rows
 from yolojax_torch.train.losses import (
     YoloV1LossConfig,
     YoloV2LossConfig,
@@ -161,33 +162,37 @@ class Optimizer:
         return state
 
     def update(self, grads: Tensors, state: Dict[str, Any],
-               params: Tensors) -> Tuple[Tensors, Dict[str, Any]]:
+               params: Tensors, norm: Optional[Callable] = None
+               ) -> Tuple[Tensors, Dict[str, Any]]:
         """-> (updates to add to the params, new state). Pure: the inputs
-        are not changed."""
+        are not changed. ``norm`` takes the clip's global norm of a
+        gradient tree (default :func:`global_norm`; a sharded state passes
+        one that sums over the ranks' pieces)."""
         k = self.cfg.grad_accum
         if k <= 1:
-            return self._inner(grads, state, params)
+            return self._inner(grads, state, params, norm)
         n_acc = state["mini_step"]
         acc = {name: a + (grads[name] - a) / (n_acc + 1)
                for name, a in state["acc_grads"].items()}
         if n_acc < k - 1:  # accumulate only: zero updates, inner state kept
             return ({name: torch.zeros_like(a) for name, a in acc.items()},
                     dict(state, mini_step=n_acc + 1, acc_grads=acc))
-        updates, new = self._inner(acc, state, params)
+        updates, new = self._inner(acc, state, params, norm)
         new.update(mini_step=0, gradient_step=state["gradient_step"] + 1,
                    acc_grads={name: torch.zeros_like(a)
                               for name, a in acc.items()})
         return updates, new
 
     def _inner(self, grads: Tensors, state: Dict[str, Any],
-               params: Tensors) -> Tuple[Tensors, Dict[str, Any]]:
+               params: Tensors, norm: Optional[Callable] = None
+               ) -> Tuple[Tensors, Dict[str, Any]]:
         cfg, name = self.cfg, self.name
         new = dict(state)
         count = state["count"]
         mask = decay_mask(params)
         u = dict(grads)
         if cfg.grad_clip_norm > 0:
-            g_norm = global_norm(u)
+            g_norm = (norm or global_norm)(u)
             keep = g_norm < cfg.grad_clip_norm
             u = {key: torch.where(keep, t, (t / g_norm) * cfg.grad_clip_norm)
                  for key, t in u.items()}
@@ -257,12 +262,14 @@ def make_head_loss(model: Model, loss_cfg):
 
 
 def prepare_images(generator, images, gt_xywh, gt_valid, dim, aug_cfg,
-                   augment: bool):
+                   augment: bool, rows: Optional[Tuple[int, int]] = None):
     """Augment, or only resize to ``dim``. ``images`` should already carry
-    the step's compute dtype (the resample and HSV ops follow it)."""
+    the step's compute dtype (the resample and HSV ops follow it).
+    ``rows`` = (first row, global rows): the images are those rows of a
+    global batch, and the draws are the global batch's."""
     if augment:
         return augment_batch(generator, images, gt_xywh, gt_valid, dim,
-                             aug_cfg)
+                             aug_cfg, rows=rows)
     if images.shape[1] != dim:
         images = resize(images, dim)
     return images, gt_xywh, gt_valid
@@ -271,11 +278,14 @@ def prepare_images(generator, images, gt_xywh, gt_valid, dim, aug_cfg,
 @dataclasses.dataclass
 class TrainState:
     """``step`` (mini-steps taken), the network (its parameters and, as
-    buffers, the BN running statistics) and the optimizer state."""
+    buffers, the BN running statistics) and the optimizer state. On a mesh
+    ``plan`` (``parallel/sharding.py::Plan``) says which pieces of them
+    this rank holds; None on one device."""
 
     step: int
     net: Network
     opt_state: Dict[str, Any]
+    plan: Optional[Any] = None
 
     def params(self) -> Tensors:
         return dict(self.net.named_parameters())
@@ -312,7 +322,14 @@ def make_train_step(
     ``with_grads`` the gradient dict under ``grads``. ``remat`` recomputes
     the forward in the backward pass (``torch.utils.checkpoint``); the
     dropout generator is re-seeded inside it, so the recomputation draws
-    the same masks."""
+    the same masks.
+
+    On a mesh (``ts.plan``) each rank steps on its rows of the global
+    batch: the augmentation and dropout draws are the global batch's (from
+    the same seeds), train-mode BN normalises with the global batch's
+    statistics, the gradients are averaged over the data ranks, and the
+    metrics are the global batch's, so the step is the one-device step on
+    the global batch."""
     if loss_cfg is None:
         loss_cfg = default_loss_cfg(model)
     loss_from_head = make_head_loss(model, loss_cfg)
@@ -321,18 +338,21 @@ def make_train_step(
                    with_grads: bool = False):
         images, gt_xywh, gt_class, gt_valid = batch
         device = images.device
+        plan = ts.plan
+        mesh = plan.mesh if plan is not None and plan.mesh.size > 1 else None
         aug_seed, drop_seed = step_seeds(seed, ts.step)
         images, gt_xywh, gt_valid = prepare_images(
             torch.Generator(device).manual_seed(aug_seed),
             images.to(compute_dtype), gt_xywh, gt_valid, dim, aug_cfg,
-            augment)
+            augment, rows=mesh_rows(mesh, images.shape[0]))
         net = ts.net
         params = ts.params()
 
         def forward(x):
             return model.apply(
                 net, x, compute_dtype=compute_dtype, train=True,
-                generator=torch.Generator(device).manual_seed(drop_seed))
+                generator=torch.Generator(device).manual_seed(drop_seed),
+                mesh=mesh)
 
         if remat:
             head, new_bn = checkpoint(forward, images, use_reentrant=False)
@@ -343,10 +363,17 @@ def make_train_step(
                                                      list(params.values()))))
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in terms.items()}
-            metrics["grad_norm"] = global_norm(grads)
-            updates, ts.opt_state = tx.update(grads, ts.opt_state, params)
-            for k, p in params.items():
-                p.add_(updates[k])
+            if plan is None:
+                metrics["grad_norm"] = global_norm(grads)
+                updates, ts.opt_state = tx.update(grads, ts.opt_state,
+                                                  params)
+                for k, p in params.items():
+                    p.add_(updates[k])
+            else:
+                grads = plan.reduce_grads(grads)
+                metrics = plan.mean_metrics(metrics)
+                metrics["grad_norm"] = plan.norm(grads)
+                ts.opt_state = plan.update(tx, grads, ts.opt_state, params)
             net.load_bn_state(new_bn)
         if with_grads:
             metrics["grads"] = grads
