@@ -68,7 +68,18 @@ Phases, each of which raises on failure:
    every requant launch of it held against the plain version on its own
    sums; the b64@416 train step), check that the fused-stem batch beats
    the unfused one, and print the MFU of the timed programs over the
-   H100's peaks (``utils/flops.py``).
+   H100's peaks (``utils/flops.py``);
+11. multi-device: ``cli.train`` in a world-1 ``nccl`` group against no
+   group, two ``gloo`` ranks sharing the card (data parallel, ZeRO-1,
+   tensor parallel) against one rank, two-process ``cli.eval
+   eval.distributed=1``, ``--data-parallel`` detect and serve, and grain;
+12. TF export: ``export_spec`` of config.ini's portable build (f32, and
+   int8 calibrated on the same 8 canvases) built on the card equals the
+   CPU's (f32 bit for bit; int8 weight codes, with the activation scales'
+   difference printed), launching no kernel; where tensorflow does not
+   import, ``cli.export --format savedmodel`` exits non-zero naming it and
+   writes nothing; where it does, the exported SavedModel's keep mask
+   equals the live portable program's on the card.
 
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -167,6 +178,7 @@ from yolojax_torch.quantize.int8_ops import (
     int8_requant_torch,
 )
 from yolojax_torch.serve import load_artifact
+from yolojax_torch.serve.tf_graph import export_spec
 from yolojax_torch.train import step as train_step
 from yolojax_torch.train.checkpoint import Checkpointer
 from yolojax_torch.utils import flops
@@ -273,6 +285,8 @@ MULTI_TIMEOUT = 300  # seconds a spawned group may take before it is killed
 MULTI_PATHS = ("world1_train", "dist_eval", "dp_detect", "dp_serve")
 # (c) the eval set's first images, evaluated at batch 1
 MULTI_EVAL_IMAGES = 32
+# phase 12: TF export. The portable builds, whose spec the TF formats bake
+TF_PATHS = ("tf_export",)
 
 
 def check(cond: bool, what: str) -> None:
@@ -3119,6 +3133,158 @@ def drive_multi_device(npz: str, ev: dict, tr: dict, tmp: str, device,
     return {"launches": launches, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: TF export
+# ---------------------------------------------------------------------------
+
+
+def _spec_arrays(spec: dict) -> dict:
+    """The arrays of a ``tf_graph.export_spec``, as ``{"<layer>.<key>":
+    array}``."""
+    return {f"{i}.{key}": v for i, layer in enumerate(spec["layers"])
+            for key, v in layer.items() if isinstance(v, np.ndarray)}
+
+
+def _spec_layout(spec: dict) -> list:
+    """A spec without its arrays: ops, strides, activations, routes."""
+    return [{key: v for key, v in layer.items()
+             if not isinstance(v, np.ndarray) and key != "r"}
+            for layer in spec["layers"]]
+
+
+def check_tf_spec(npz: str, calib: torch.Tensor, device,
+                  overrides=()) -> dict:
+    """Phase 12 (a): ``export_spec`` of config.ini's portable build
+    (``build_serving(portable=True)``, what ``cli.export --format
+    savedmodel|tflite --device`` runs) with ``device`` against the CPU.
+    f32: the folded weights are equal bit for bit (the fold runs on the
+    host). int8, calibrated on the same ``calib`` canvases on each side:
+    the weight codes and the f32 head are equal, the activation scales
+    differ by the calibration's bf16 convs (printed). Returns the kernels'
+    launches over both builds (the portable program launches none)."""
+    cpu = torch.device("cpu")
+    specs = {}
+    _reset_launches()
+    for int8 in (False, True):
+        cfg = load_config(["config.ini"], [*overrides] + (
+            ["detect.use_int8=1"] if int8 else []))
+        for side, dev in (("card", device), ("cpu", cpu)):
+            canvases = list(calib.to(dev)) if int8 else None
+            _, _, infer_fn, net, _ = build_serving(cfg, npz, canvases,
+                                                   device=dev, portable=True)
+            specs[int8, side] = export_spec(infer_fn.model, net, infer_fn.qm)
+            del infer_fn, net
+    launches = _launches()
+    card, host = (_spec_arrays(specs[False, s]) for s in ("card", "cpu"))
+    check(_spec_layout(specs[False, "card"]) == _spec_layout(specs[False, "cpu"])
+          and card.keys() == host.keys()
+          and all(card[k].dtype == host[k].dtype
+                  and card[k].tobytes() == host[k].tobytes() for k in card),
+          "tf export: the f32 spec built on the card == the CPU's bit for bit")
+    nbytes = sum(v.nbytes for v in card.values())
+    q_card, q_host = (specs[True, s] for s in ("card", "cpu"))
+    qa, qb = _spec_arrays(q_card), _spec_arrays(q_host)
+    codes = [k for k in qa if k.endswith(".w_q")]
+    head = [k for k in qa if q_card["layers"][int(k.split(".")[0])].get(
+        "head")]
+    check(_spec_layout(q_card) == _spec_layout(q_host)
+          and qa.keys() == qb.keys() and len(codes) > 0
+          and all(np.array_equal(qa[k], qb[k]) for k in codes + head),
+          "tf export: the int8 spec's weight codes and head card == CPU")
+    scales = np.asarray([q_card["int8"]["input_scale"],
+                         *q_card["int8"]["act_scales"]])
+    ref = np.asarray([q_host["int8"]["input_scale"],
+                      *q_host["int8"]["act_scales"]])
+    scale_rel = float(np.max(np.abs(scales - ref) / ref))
+    print(f"phase tf export (a): f32 spec card == cpu bit for bit "
+          f"({len(card)} arrays, {nbytes / 1e6:.1f} MB); int8 spec: "
+          f"{len(codes)} layers' w_q codes and the head equal, largest "
+          f"act-scale difference {scale_rel:.3e} relative "
+          f"({len(scales)} scales); launches {launches}", flush=True)
+    check(launches == {"nms_greedy": 0, "stem_fused": 0, "int8_requant": 0},
+          "the portable builds launched no kernel")
+    return launches
+
+
+def start_tf_refusal(npz: str, tmp: str) -> tuple:
+    """Phase 12 (b), where tensorflow does not import (the card's machine):
+    starts ``python -m yolojax_torch.cli.export --format savedmodel``, which
+    must exit non-zero naming tensorflow and write no directory
+    (:func:`check_tf_refusal`). It runs while (a) builds."""
+    out = os.path.join(tmp, "tf_refused_savedmodel")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "yolojax_torch.cli.export", "-c",
+         "config.ini", "--weights", npz, "--out", out, "--format",
+         "savedmodel"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    return proc, out
+
+
+def check_tf_refusal(proc, out: str) -> None:
+    try:
+        _, stderr = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    said = (stderr.strip().splitlines() or [""])[-1]
+    print(f"phase tf export (b): cli.export --format savedmodel exits "
+          f"{proc.returncode}: {said}", flush=True)
+    check(proc.returncode != 0 and "tensorflow" in stderr,
+          "cli.export --format savedmodel without tensorflow exits non-zero "
+          "naming it")
+    check(not os.path.exists(out), "the refused export wrote nothing")
+
+
+def check_tf_savedmodel(npz: str, canvases: torch.Tensor, tmp: str, device,
+                        overrides=()) -> None:
+    """Phase 12 (c), only where tensorflow imports: ``cli.export --format
+    savedmodel --batch 1`` on the CPU, then its keep mask on one canvas
+    against the live f32 ``build_serving(portable=True)`` program on
+    ``device`` (TF32 off)."""
+    # the eval floor, so candidates are valid and the sweep does work
+    overrides = ["detect.threshold=0.005", *overrides]
+    out = os.path.join(tmp, "tf_export_savedmodel")
+    _, printed = run_cli(export_cli, [
+        "-c", "config.ini", "--weights", npz, "--out", out, "--format",
+        "savedmodel", "--batch", "1", "--device", "cpu", *overrides])
+    from yolojax_torch.serve.savedmodel import load_savedmodel
+
+    _, serve_fn = load_savedmodel(out)
+    x = canvases[:1].float().contiguous()
+    got = serve_fn(x.cpu().numpy())
+    cfg = load_config(["config.ini"], list(overrides))
+    _, _, infer_fn, net, _ = build_serving(cfg, npz, device=device,
+                                           portable=True)
+    with full_f32():
+        want = infer_fn(net, x.to(device))
+    keep = want["keep"].cpu().numpy()
+    print(f"phase tf export (c): {printed.strip()}; keep {int(keep.sum())} "
+          f"of {keep.size}, equal to the live program's: "
+          f"{np.array_equal(got['keep'], keep)}", flush=True)
+    check(np.array_equal(got["keep"], keep),
+          "the SavedModel's keep mask == the live portable program's")
+
+
+def drive_tf_export(npz: str, canvases: torch.Tensor, tmp: str, device,
+                    overrides=()) -> dict:
+    """Phase 12: (a), then (b) or, where tensorflow imports, (c). Returns
+    the launches of (a)'s builds."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    refusal = None if has_tf else start_tf_refusal(npz, tmp)
+    launches = check_tf_spec(npz, canvases[:8], device, overrides)
+    if has_tf:
+        check_tf_savedmodel(npz, canvases, tmp, device, overrides)
+    else:
+        check_tf_refusal(*refusal)
+    print(f"phase tf export: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"tf_export": launches}
+
+
 def main() -> int:
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
@@ -3301,6 +3467,7 @@ def main() -> int:
                       flops.PEAK_F32, "f32")
 
         multi = drive_multi_device(npz, ev, tr, tmp, device, card)
+        tf_run = drive_tf_export(npz, run["canvases"], tmp, device)
 
     # launches: the eval path's run (the int8 kernel: the int8 detect run);
     # launches_by_path: each path's own run
@@ -3309,7 +3476,8 @@ def main() -> int:
                       **{p: i8["launches"][p][name] for p in INT8_PATHS},
                       **{p: qat_launches[p][name] for p in QAT_PATHS},
                       **{p: tool_launches[p][name] for p in TOOL_PATHS},
-                      **{p: multi["launches"][p][name] for p in MULTI_PATHS}}
+                      **{p: multi["launches"][p][name] for p in MULTI_PATHS},
+                      **{p: tf_run[p][name] for p in TF_PATHS}}
                for name, serving in (("nms_greedy", run["launches"]),
                                      ("stem_fused", run["stem_launches"]),
                                      ("int8_requant", run["int8_launches"]))}

@@ -72,7 +72,33 @@ def test_port_imports_without_jax():
             "yolojax_torch.parallel.collectives",
             "yolojax_torch.parallel.sharding",
             "yolojax_torch.parallel.launch",
-            "yolojax_torch.data.grain_loader"} <= names
+            "yolojax_torch.data.grain_loader", "yolojax_torch.serve.tf_graph",
+            "yolojax_torch.serve.savedmodel",
+            "yolojax_torch.serve.tflite"} <= names
+
+
+@pytest.mark.parametrize("fmt", ["savedmodel", "tflite"])
+def test_tf_export_without_tensorflow_writes_nothing(tmp_path, fmt):
+    """With tensorflow (and jax, yolojax) blocked, ``cli.export --format
+    savedmodel|tflite`` exits non-zero naming tensorflow and leaves no
+    output behind, as on a card host without it."""
+    model = get_model("yolo2", "tiny", 20)
+    npz = str(tmp_path / "tiny.npz")
+    save_network_npz(npz, model, model.init(torch.Generator().manual_seed(0),
+                                            64))
+    ini = tmp_path / "t.ini"
+    ini.write_text("[model]\nmodel = yolo2\ninference = tiny\ndim = 64\n")
+    out = str(tmp_path / ("sm" if fmt == "savedmodel" else "m.tflite"))
+    proc = _run_blocked("""
+        import runpy
+        sys.modules["tensorflow"] = None
+        sys.argv = ["export", *sys.argv[1:]]
+        runpy.run_module("yolojax_torch.cli.export", run_name="__main__")
+    """, "-c", str(ini), "--weights", npz, "--out", out, "--format", fmt,
+        "--device", "cpu")
+    assert proc.returncode != 0
+    assert "needs tensorflow" in proc.stderr, proc.stderr[-2000:]
+    assert not os.path.exists(out) and not os.path.exists(out + ".json")
 
 
 def test_multi_device_paths_run_without_jax(tmp_path):

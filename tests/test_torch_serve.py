@@ -206,6 +206,28 @@ def test_tflite_handed_to_artifact_gets_a_hint(tmp_path):
         load_artifact(str(p), device="cpu")
 
 
+@pytest.mark.parametrize("kind", ["savedmodel", "tflite"])
+def test_artifact_hints_name_the_tf_loaders(tmp_path, kind):
+    """A SavedModel directory or a ``.tflite`` file handed to
+    ``load_artifact`` names the port's own loader for it, as yolojax's
+    hints name its loaders; the named function exists."""
+    import importlib
+
+    if kind == "savedmodel":
+        path = tmp_path / "model"
+        path.mkdir()
+        (path / "saved_model.pb").write_bytes(b"pb")
+    else:
+        path = tmp_path / "model.tflite"
+        path.write_bytes(b"TFL3 flatbuffer bytes")
+    loader = {"savedmodel": "load_savedmodel", "tflite": "load_tflite"}[kind]
+    with pytest.raises(ValueError,
+                       match=rf"yolojax_torch\.serve\.{kind}\.{loader}"):
+        load_artifact(str(path), device="cpu")
+    assert callable(getattr(importlib.import_module(
+        f"yolojax_torch.serve.{kind}"), loader))
+
+
 # ---------------------------------------------------------------------------
 # the dynamic batcher: every case of tests/unit/test_batching.py
 # ---------------------------------------------------------------------------

@@ -163,15 +163,21 @@ def test_export_header_matches_yolojax(ws, monkeypatch, capsys):
 
 def test_export_refusals(ws):
     """int8 without ``--calib-image`` is refused (unless
-    ``--allow-synthetic-calib``), as is ``--batch 0``; the TF formats are
-    not ported and say where that is recorded."""
+    ``--allow-synthetic-calib``), as is ``--batch 0``; of the TF formats
+    (``tests/test_torch_savedmodel.py``, ``tests/test_torch_tflite.py``),
+    TFLite refuses yolojax's ``stablehlo`` mode and an int8 program, naming
+    the way out, and writes nothing."""
     with pytest.raises(SystemExit):
         _export(ws, "x.yjts", "detect.use_int8=1")
     with pytest.raises(SystemExit):
         _export(ws, "x.yjts", "--batch", "0")
-    for fmt in ("savedmodel", "tflite"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _export(ws, "x.yjts", "--format", fmt)
+    for extra, way_out in (
+            (["--tflite-mode", "stablehlo"], "--tflite-mode graph"),
+            (["detect.use_int8=1", "--allow-synthetic-calib"],
+             "--format savedmodel")):
+        with pytest.raises(ValueError, match=way_out):
+            _export(ws, "x.tflite", "--format", "tflite", *extra)
+        assert not os.path.exists(ws["tmp"] / "x.tflite")
     out, meta = _export(ws, "synthetic.yjts", "detect.use_int8=1",
                         "--allow-synthetic-calib")
     assert meta["int8"] is True and os.path.getsize(out) > 0

@@ -32,6 +32,22 @@ def _torch_threads():
     torch.set_num_threads(prev)
 
 
+@pytest.fixture
+def fresh_jax_caches():
+    """Empty jax's caches before and after a test that runs the Pallas stem
+    eagerly in interpret mode. Under jax 0.9.0 such a call's io_callbacks
+    dispatch jax ops while the main thread dispatches the next eager op;
+    when that op's executable is already cached (the same shapes ran
+    earlier in the process), the two dispatches deadlock. Run after this
+    file in one process, tests/unit/test_stem.py::
+    test_fuse_stem_pallas_full_model_matches hung every time (4 of 4) with
+    the caches left warm, and passed every time (3 of 3) with them
+    emptied."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 def stem_inputs(dim, seed=0, n=2, co=32):
     """x (n, dim, dim, 3) in [0, 1], w0 (3, 3, 3, co), b (co,), as
     tests/unit/test_stem.py draws them."""
@@ -78,7 +94,7 @@ def test_stem_forward_matches_jax(dim):
 
 
 @pytest.mark.parametrize("dim", [32, 64])
-def test_plain_stem_matches_pallas_interpret(dim):
+def test_plain_stem_matches_pallas_interpret(dim, fresh_jax_caches):
     x, w0, b = stem_inputs(dim, seed=dim)
     wp = stem.pack_stem_kernel(w0)
     with pltpu.force_tpu_interpret_mode():
@@ -318,7 +334,7 @@ def _fused_pair(inference, impl, seed):
     ("xla", 2e-4),     # f32 packed conv on both sides (test_stem.py:50)
     ("pallas", 3e-2),  # bf16 stem: plain twin vs Pallas (test_stem.py:70)
 ])
-def test_fused_model_matches_jax(inference, impl, tol):
+def test_fused_model_matches_jax(inference, impl, tol, fresh_jax_caches):
     (jm, params, state), (tm, net) = _fused_pair(inference, impl, seed=11)
     x = np.random.RandomState(12).uniform(0, 1, (2, 64, 64, 3)).astype(
         np.float32)

@@ -62,14 +62,20 @@ SYNTHETIC_CALIB_SEED, SYNTHETIC_CALIB_IMAGES = 9, 8
 
 
 def build_serving(cfg, weights_path: str, calib_canvases=None, *,
-                  device=None):
+                  device=None, portable: bool = False):
     """Load weights, fold BN, then either fuse the stem
     (``detect.fuse_stem``) or, with ``detect.use_int8``, quantize the trunk
     on ``calib_canvases`` (letterboxed input canvases; a seeded synthetic
     batch, with a warning, when there are none) and fuse the int8 stem when
     ``detect.fuse_stem`` is not off. Bind the serving program. Returns
     (names, dim, infer_fn(net, images), net, device): bf16 convs on the
-    card, f32 on the CPU; the int8 program reads no ``net``."""
+    card, f32 on the CPU; the int8 program reads no ``net``;
+    ``infer_fn.model`` is the model it runs.
+
+    ``portable``: the program the TF exports write (``serve/tf_graph.py``),
+    as yolojax's portable build: f32 convs on any device, the plain NMS
+    sweep, exact top-K, and no fused bf16 stem (the int8 stem stays, as in
+    yolojax)."""
     device = resolve_device(device)
     model = cfg.build_model()
     names = cfg.names()
@@ -78,7 +84,8 @@ def build_serving(cfg, weights_path: str, calib_canvases=None, *,
     # BN folds at the forward's 1e-5, as yolojax's detect does: it never
     # reads [model] bn_eps
     model, net = fold_bn(model, net)
-    compute = torch.float32 if device.type == "cpu" else torch.bfloat16
+    compute = (torch.float32 if portable or device.type == "cpu"
+               else torch.bfloat16)
     qm = None
     if cfg.detect.use_int8:
         if calib_canvases is not None and len(calib_canvases):
@@ -100,12 +107,19 @@ def build_serving(cfg, weights_path: str, calib_canvases=None, *,
             # bit-exact phase-packed conv0 + pool, opt-in like the bf16 stem
             qm = fuse_stem_int8(qm)
     else:
-        model, net = fuse_stem(model, net, impl=cfg.detect.fuse_stem)
+        stem_impl = cfg.detect.fuse_stem
+        if portable and stem_impl != "off":
+            log.warning("portable export: detect.fuse_stem=%s disabled "
+                        "(fused stems are TPU-layout-specific)", stem_impl)
+            stem_impl = "off"
+        model, net = fuse_stem(model, net, impl=stem_impl)
         net = serving_weights(net, device, compute)
+    use_pallas, candidates = (("never", "exact") if portable else
+                              (cfg.detect.use_pallas, cfg.detect.candidates))
     infer_fn = make_infer_fn(
         model, score_thresh=cfg.detect.threshold,
         iou_thresh=cfg.detect.nms_iou, top_k=cfg.detect.top_k,
-        use_pallas=cfg.detect.use_pallas, candidates=cfg.detect.candidates,
+        use_pallas=use_pallas, candidates=candidates,
         compute_dtype=compute, qm=qm,
     )
     return names, dim, infer_fn, net, device

@@ -65,7 +65,8 @@ def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
     trunk (``apply_int8``) then runs instead of the forward, and ``net``
     is not read. ``infer`` runs in inference mode; ``infer.forward(net,
     images, qm=qm)`` is the same program outside it, for ``torch.export``
-    (``yolojax_torch/serve``), and ``infer.qm`` is ``qm``."""
+    (``yolojax_torch/serve``), ``infer.qm`` is ``qm`` and ``infer.model``
+    is ``model``."""
 
     def forward(net: Network, images: torch.Tensor,
                 qm: Optional[QuantizedModel] = qm) -> Dict[str, torch.Tensor]:
@@ -86,7 +87,7 @@ def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
         )
 
     infer = torch.inference_mode()(forward)
-    infer.forward, infer.qm = forward, qm
+    infer.forward, infer.qm, infer.model = forward, qm, model
     return infer
 
 

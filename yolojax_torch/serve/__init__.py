@@ -122,8 +122,9 @@ def save_artifact(path: str, infer_fn, net: nn.Module, *, batch: int,
 def load_artifact(path: str, device=None) -> ServingArtifact:
     """Load an artifact for ``device`` (default: the CUDA card).
 
-    Raises ``ValueError`` on a directory, a bad magic (with the route for a
-    yolojax ``.yjsa`` and a hint for a ``.tflite`` file), corrupt metadata,
+    Raises ``ValueError`` on a directory (naming the SavedModel loader), a
+    bad magic (with the route for a yolojax ``.yjsa`` and the TFLite loader
+    for a ``.tflite`` file), corrupt metadata,
     and when ``device`` is not of the platform the artifact was exported
     on."""
     import yolojax_torch.kernels.ops  # noqa: F401  (the kernels' operators)
@@ -131,8 +132,11 @@ def load_artifact(path: str, device=None) -> ServingArtifact:
 
     if os.path.isdir(path):
         raise ValueError(
-            f"{path}: is a directory, not a serving artifact — export one "
-            "file with python -m yolojax_torch.cli.export")
+            f"{path}: is a directory, not a serving artifact — a SavedModel "
+            "export (--format savedmodel) serves under TF Serving "
+            "(yolojax_torch.serve.savedmodel.load_savedmodel), not "
+            "--artifact; export one file with python -m "
+            "yolojax_torch.cli.export")
     with open(path, "rb") as f:
         head = f.read(len(MAGIC))
         if head != MAGIC:
@@ -141,7 +145,8 @@ def load_artifact(path: str, device=None) -> ServingArtifact:
                         "the weights with python -m yolojax_torch.cli.export")
             elif path.endswith(".tflite"):
                 hint = (" — .tflite flatbuffers serve under the TFLite "
-                        "interpreter, not --artifact")
+                        "interpreter (yolojax_torch.serve.tflite.load_tflite), "
+                        "not --artifact")
             else:
                 hint = ""
             raise ValueError(
