@@ -16,8 +16,10 @@ Phases, each of which raises on failure:
    ragged) with random weights, random weights and a cancelling bias, and
    the seeded Darknet-19's conv0 weights (and ``detect.fuse_stem=auto``
    launches it, as ``pallas`` does), the int8 requant kernel's codes equal
-   on seven cases (both modes), and the int8 product's int32 sums equal to
-   an exact CPU product on seven convs and dense layers;
+   on seven cases (both modes), the int8 product's int32 sums equal to
+   an exact CPU product on seven convs and dense layers, and the bf16 conv
+   epilogue kernel's output bits equal on fourteen cases (bias, BN and
+   linear modes, C = 125, dense layers, column slices, the specials);
 4. drive the serving path as a user does (``build_detector`` and
    ``run_detect`` on YOLOv2 Darknet-19 at 416, full width, random weights
    from a seed), count the kernel launches of that run, check the path's
@@ -25,7 +27,8 @@ Phases, each of which raises on failure:
    card against the CPU on a small input;
 5. drive the eval path as a user does (``cli.cache`` on a seeded COCO-layout
    set of PPM images, then ``cli.eval`` with ``detect.fuse_stem=pallas``),
-   count its kernel launches (each kernel once per batch), check its
+   count its kernel launches (each kernel once per batch, the conv epilogue
+   once a conv), check its
    metrics and the fused-stem head against the unfused forward;
 6. drive the training path as a user does (``cli.cache`` with a train and
    a val phase, then ``cli.train`` on ``config.ini``: Darknet-19 at 416,
@@ -66,9 +69,13 @@ Phases, each of which raises on failure:
 10. time the paths and the kernels on the card (the NMS kernel's build and
    sweep phases also apart; the b128 int8 batch beside the bf16 ones, with
    every requant launch of it held against the plain version on its own
-   sums; the b64@416 train step), check that the fused-stem batch beats
-   the unfused one, and print the MFU of the timed programs over the
-   H100's peaks (``utils/flops.py``);
+   sums; the conv epilogue's time and bound in the b128 bf16 programs,
+   every one of their launches held against the plain version bit for
+   bit, and the A/B of those programs and of batch 1 with the plain
+   epilogue and with the kernel, peak memory beside it; the b64@416 train
+   step), check that the fused-stem batch beats the unfused one, and print
+   the MFU of the timed programs over the H100's peaks
+   (``utils/flops.py``);
 11. multi-device: ``cli.train`` in a world-1 ``nccl`` group against no
    group, two ``gloo`` ranks sharing the card (data parallel, ZeRO-1,
    tensor parallel) against one rank, two-process ``cli.eval
@@ -138,18 +145,22 @@ from yolojax_torch.data.loader import (
 )
 from yolojax_torch.eval.evaluator import evaluate_model, serving_weights
 from yolojax_torch.kernels import build
+from yolojax_torch.kernels import ops as kernel_ops
 from yolojax_torch.models import Model, get_model
-from yolojax_torch.nn import cuda_stem
+from yolojax_torch.nn import cuda_epilogue, cuda_stem
 from yolojax_torch.parallel import distributed, launch
 from yolojax_torch.parallel.mesh import make_mesh, shard_batch
 from yolojax_torch.parallel.sharding import Plan
+from yolojax_torch.nn.cuda_epilogue import conv_epilogue_cuda
 from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import (
     ConvSpec,
     MaxPoolSpec,
     RouteSpec,
     _darknet_padding,
+    bn_affine,
     conv2d,
+    conv_epilogue_torch,
     leaky_relu,
     max_pool,
 )
@@ -201,7 +212,13 @@ FORWARD_RTOL = 1e-4
 # every kernel of the port, with its own nvcc flags (as its wrapper loads it)
 KERNELS = (("nms_greedy", cuda_nms.NVCC_FLAGS),
            ("stem_fused", cuda_stem.NVCC_FLAGS),
-           ("int8_requant", cuda_int8.NVCC_FLAGS))
+           ("int8_requant", cuda_int8.NVCC_FLAGS),
+           ("conv_epilogue", cuda_epilogue.NVCC_FLAGS))
+# every kernel's wrapper, whose ``launches`` counts its real launches
+WRAPPERS = (("nms_greedy", nms_greedy_cuda), ("stem_fused", stem_fused_cuda),
+            ("int8_requant", int8_requant_cuda),
+            ("conv_epilogue", conv_epilogue_cuda))
+KERNEL_NAMES = tuple(name for name, _ in WRAPPERS)
 # (N, H, W) inputs of the stem kernel against its plain version: the eval
 # batch, one image, a smaller and a larger (multiscale 608) square, a tiny
 # one, and a ragged one (W/2 = 67 is no multiple of the tile's 32 columns,
@@ -240,6 +257,12 @@ REQUANT_OPS = 9
 # the plain requant on the card runs in chunks of about this many values
 # (whole rows), so its float64 temporaries stay a few GB
 PLAIN_CHUNK = 1 << 26
+# f32 operations of one conv-epilogue value, by mode: convert, add (BN: and
+# a multiply), compare + multiply + select (leaky), convert
+EPILOGUE_OPS = {(False, False): 3, (False, True): 6, (True, True): 7,
+                (True, False): 4}  # (BN scale, leaky)
+# the batch-1 program's latency, plain epilogue vs kernel, in turns
+AB_LATENCY_RUNS = 50
 INT8_PATHS = ("int8_detect", "int8_stdin", "int8_eval")
 # phase 9: QAT -> export -> serve. cli.qat's steps on config.ini; the
 # artifacts' fixed batch; the daemon's load
@@ -292,6 +315,25 @@ TF_PATHS = ("tf_export",)
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def _reset_launches() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for _, kern in WRAPPERS:
+        kern.launches = 0
+
+
+def _launches() -> dict:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {name: kern.launches for name, kern in WRAPPERS}
+
+
+def conv_count(cfg) -> int:
+    """The conv layers of the config's model: each runs one conv-epilogue
+    launch a bf16 batch (but conv0 where the stem kernel takes it)."""
+    return sum(isinstance(s, ConvSpec) for s in cfg.build_model().specs)
 
 
 def cuda_ms(fn, reps: int) -> list:
@@ -533,6 +575,133 @@ def compare_stem(device, stem_layer) -> tuple:
     return worst, worst_ratio
 
 
+def bf16_bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """bf16 tensors equal bit for bit, NaN by NaN-ness (the card's and
+    torch's casts may give a NaN other payload bits)."""
+    nan = torch.isnan(want)
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int16)[~nan],
+                            want.view(torch.int16)[~nan]))
+
+
+def vector_path(y: torch.Tensor, b: torch.Tensor, scale) -> bool:
+    """Whether the conv-epilogue kernel moves 8 channels a thread on these
+    inputs (``csrc/conv_epilogue.cu``: C and the row stride multiples of 8,
+    every pointer 16-byte aligned; the output is a fresh allocation)."""
+    y2 = cuda_epilogue._rows(y)
+    ptrs = [y2.data_ptr(), b.data_ptr()] + (
+        [] if scale is None else [scale.data_ptr()])
+    return (y2.shape[1] % 8 == 0 and cuda_epilogue.row_stride(y2) % 8 == 0
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def epilogue_cases(device) -> dict:
+    """conv_epilogue inputs (y, b, scale, leaky) on ``device``: the three
+    modes at Darknet-19's widths, the v2 head's C = 125, a dense layer, an
+    aligned and an unaligned column slice, one row, and the specials (rows
+    of +-0, +-inf and NaN, bf16 rounding ties, values at leaky's zero)."""
+    rng = np.random.RandomState(SEED + 13)
+
+    def vec(c, lo=None, hi=None):
+        v = (rng.uniform(lo, hi, c) if lo is not None
+             else rng.normal(0, 0.5, c))
+        return torch.from_numpy(v.astype(np.float32)).to(device)
+
+    def bn(c):
+        return bn_affine(vec(c, 0.5, 1.5), vec(c), vec(c) * 0.2,
+                         vec(c, 0.5, 1.5))
+
+    def ys(*shape):
+        y = torch.from_numpy(rng.normal(0, 2, shape).astype(np.float32))
+        return y.to(device, torch.bfloat16)
+
+    cases = {}
+    for label, shape, mode in (
+            ("C32 bias leaky (conv0 @416, 16 images)", (16, 416, 416, 32),
+             "bias"),
+            ("C64 BN leaky", (8, 104, 104, 64), "bn"),
+            ("C1024 bias leaky", (128, 13, 13, 1024), "bias"),
+            ("C125 bias linear (the v2 head)", (128, 13, 13, 125), "head"),
+            ("C1024 BN linear", (4, 13, 13, 1024), "bn-linear"),
+            ("dense 4096 leaky", (64, 4096), "bias"),
+            ("dense 1470 linear (the v1 head)", (64, 1470), "head"),
+            ("one row C256", (1, 256), "bias")):
+        c = shape[-1]
+        scale, b = bn(c) if mode.startswith("bn") else (None, vec(c))
+        cases[label] = (ys(*shape), b, scale,
+                        mode not in ("head", "bn-linear"))
+    wide = ys(4099, 264)
+    b, b_bn = vec(256), bn(256)
+    cases["aligned column slice (ld 264)"] = (wide[:, 8:264], b, None, True)
+    cases["unaligned column slice (ld 264, offset 3)"] = (
+        wide[:, 3:259], b_bn[1], b_bn[0], True)
+    # specials, at C = 64 and 125
+    for c in (64, 125):
+        y = rng.normal(0, 2, (512, c)).astype(np.float32)
+        bias = rng.normal(0, 0.5, c).astype(np.float32)
+        y = torch.from_numpy(y).bfloat16().float().numpy()
+        y[0], y[1] = 0.0, -0.0
+        y[2] = np.where(np.arange(c) % 3 == 0, np.inf,
+                        np.where(np.arange(c) % 3 == 1, -np.inf, np.nan))
+        y[3] = np.where(np.arange(c) % 2 == 0, -bias,
+                        -bias + np.spacing(np.abs(bias)))
+        cases[f"specials C{c}"] = (
+            torch.from_numpy(y).to(device, torch.bfloat16),
+            torch.from_numpy(bias).to(device), None, True)
+        # y + b_tie halfway between two bf16 values, away from zero
+        yt = torch.from_numpy(y[4:]).bfloat16().float().numpy()
+        exp = np.floor(np.log2(np.abs(yt[0])))
+        b_tie = (np.sign(yt[0]) * 2.0 ** (exp - 8)).astype(np.float32)
+        cases[f"bf16 ties C{c}"] = (
+            torch.from_numpy(yt).to(device, torch.bfloat16),
+            torch.from_numpy(b_tie).to(device), None, False)
+    return cases
+
+
+def compare_epilogue(device) -> float:
+    """The conv-epilogue kernel against its plain version on the card: bf16
+    bits equal (NaN by NaN-ness). Returns the largest absolute difference
+    over the values both give finite (0)."""
+    worst = 0.0
+    for label, (y, b, scale, leaky) in epilogue_cases(device).items():
+        got = conv_epilogue_cuda(y, b, scale, leaky=leaky)
+        want = conv_epilogue_torch(y, b, scale, leaky=leaky)
+        torch.cuda.synchronize()
+        equal = bf16_bits_equal(got, want)
+        both = torch.isfinite(got) & torch.isfinite(want)
+        err = float((got.float() - want.float())[both].abs().max())
+        worst = max(worst, err)
+        print(f"  conv_epilogue {label}: y {tuple(y.shape)} strides "
+              f"{y.stride()}, {'BN' if scale is not None else 'bias'}"
+              f"{' + leaky' if leaky else ''}, "
+              f"{'8' if vector_path(y, b, scale) else '1'} a thread; bits "
+              f"equal {equal}", flush=True)
+        check(equal, f"conv_epilogue == plain on {label}")
+        del got, want
+    y = torch.zeros((2, 8, 8, 32), dtype=torch.bfloat16, device=device)
+    b = torch.zeros(32, device=device)
+    for bad, why in (
+        (lambda: conv_epilogue_cuda(y.float(), b, leaky=True), "an f32 y"),
+        (lambda: conv_epilogue_cuda(y, b[:16], leaky=True),
+         "a short bias"),
+        (lambda: conv_epilogue_cuda(y, b.double(), leaky=True),
+         "an f64 bias"),
+        (lambda: conv_epilogue_cuda(
+            y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), b,
+            leaky=True), "NCHW memory"),
+        (lambda: conv_epilogue_cuda(y.reshape(-1, 32).t(),
+                                    torch.zeros(128, device=device),
+                                    leaky=True), "column-major y"),
+    ):
+        try:
+            bad()
+        except ValueError:
+            continue
+        raise RuntimeError(f"chip_smoke: the epilogue wrapper accepted {why}")
+    return worst
+
+
 def random_weights(cfg, path: str) -> None:
     """Full-width weights from SEED with random BN statistics, written
     through the port's .npz store."""
@@ -571,28 +740,22 @@ def drive_main_path(cfg, npz: str, device, batch: int) -> dict:
     images = synthetic_images(np.random.RandomState(SEED))
     gen = torch.Generator(device).manual_seed(SEED)
     canvases = torch.rand((batch, dim, dim, 3), device=device, generator=gen)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    nms_greedy_cuda.launches = 0
-    stem_fused_cuda.launches = 0
-    int8_requant_cuda.launches = 0
+    _reset_launches()
     with contextlib.redirect_stdout(io.StringIO()) as det_lines:
         results = run_detect(cfg, npz, images, detector=detector)
     out = infer(canvases)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = nms_greedy_cuda.launches
-    print(f"phase serving path: nms_greedy launches {launches}, stem_fused "
-          f"launches {stem_fused_cuda.launches}, int8_requant launches "
-          f"{int8_requant_cuda.launches} (detect.fuse_stem="
+    got = _launches()
+    launches = got["nms_greedy"]
+    print(f"phase serving path: launches {got} (detect.fuse_stem="
           f"{cfg.detect.fuse_stem})", flush=True)
     for label, raw, dets in results:
         print(f"  run_detect {label} {raw.shape[1]}x{raw.shape[0]}: "
               f"{len(dets)} detections", flush=True)
     check(len(det_lines.getvalue().splitlines())
           == sum(len(r[2]) for r in results), "one line per detection")
-    return {"launches": launches, "stem_launches": stem_fused_cuda.launches,
-            "int8_launches": int8_requant_cuda.launches,
+    return {"launches": launches, "stem_launches": got["stem_fused"],
+            "int8_launches": got["int8_requant"],
+            "epilogue_launches": got["conv_epilogue"],
             "out": out, "canvases": canvases, "infer": infer}
 
 
@@ -716,19 +879,11 @@ def drive_eval_path(npz: str, tmp: str, device, n_images: int,
                                      *overrides])
     print(f"phase eval path: cli.cache: {printed.strip()}", flush=True)
     argv = eval_argv(npz, cache_dir, device, overrides)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    nms_greedy_cuda.launches = 0
-    stem_fused_cuda.launches = 0
-    int8_requant_cuda.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     metrics, printed = run_cli(eval_cli, argv)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    launches = _launches()
     seconds = time.perf_counter() - t0
-    launches = {"nms_greedy": nms_greedy_cuda.launches,
-                "stem_fused": stem_fused_cuda.launches,
-                "int8_requant": int8_requant_cuda.launches}
     lines = printed.splitlines()
     for line in lines[:-1]:
         print(f"  cli.eval: {line}", flush=True)
@@ -820,20 +975,12 @@ def drive_train_path(tmp: str, device, n_images: int, overrides=()) -> dict:
             "train.ema_decay=0.999", "detect.fuse_stem=pallas",
             f"eval.batch_size={EVAL_BATCH}", *overrides]
     cpu = ["--device", "cpu"] if device.type == "cpu" else []
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    nms_greedy_cuda.launches = 0
-    stem_fused_cuda.launches = 0
-    int8_requant_cuda.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     with log_lines("train") as first:
         run_cli(train_cli, argv + [f"train.steps={TRAIN_STEPS}", *cpu])
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    launches = _launches()
     seconds = time.perf_counter() - t0
-    launches = {"nms_greedy": nms_greedy_cuda.launches,
-                "stem_fused": stem_fused_cuda.launches,
-                "int8_requant": int8_requant_cuda.launches}
     rows = metric_rows(logdir)
     losses = [r for r in rows if "total" in r]
     print(f"  cli.train to step {TRAIN_STEPS}: {seconds:.2f} s (first run: "
@@ -1521,14 +1668,9 @@ def int8_programs(npz: str, canvases) -> dict:
 def count_launches(fn) -> dict:
     """Every kernel's launches over ``fn()``: counts set to 0 just before,
     read just after."""
-    torch.cuda.synchronize()
-    for kern in (nms_greedy_cuda, stem_fused_cuda, int8_requant_cuda):
-        kern.launches = 0
+    _reset_launches()
     fn()
-    torch.cuda.synchronize()
-    return {"nms_greedy": nms_greedy_cuda.launches,
-            "stem_fused": stem_fused_cuda.launches,
-            "int8_requant": int8_requant_cuda.launches}
+    return _launches()
 
 
 def check_requant_launches(infer_fn, net, canvases, label: str) -> tuple:
@@ -1603,6 +1745,177 @@ def time_int8_requant(progs: dict, canvases, card: str) -> dict:
         print(f"    {us / 1e3:8.3f} ms  {key[:90]}", flush=True)
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def check_epilogue_launches(infer_fn, net, canvases, label: str) -> tuple:
+    """One call of a bf16 serving program in which every conv-epilogue
+    launch is also run through the plain version on the same bf16 product
+    and vectors: the bits must be equal. Returns, for each launch, (y's
+    shape, whether y is contiguous, BN mode, leaky, 8 channels a thread),
+    and the plain version's device milliseconds summed over the
+    launches."""
+    launches, plain = [], [0.0]
+    op = kernel_ops.conv_epilogue
+
+    def checked(y, b, scale, leaky, alpha):
+        got = op(y, b, scale, leaky, alpha)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = conv_epilogue_torch(y, b, scale, leaky=leaky, alpha=alpha)
+        end.record()
+        end.synchronize()
+        plain[0] += start.elapsed_time(end)
+        launches.append((tuple(y.shape), y.is_contiguous(), scale is not None,
+                         leaky, vector_path(y, b, scale)))
+        check(bf16_bits_equal(got, want), f"conv_epilogue == plain at launch "
+              f"{len(launches)} of {label}: y {tuple(y.shape)} strides "
+              f"{y.stride()}")
+        return got
+
+    # the operator the wrapper calls after its checks
+    with mock.patch.object(kernel_ops, "conv_epilogue", checked):
+        infer_fn(net, canvases)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    contiguous = sum(c for _, c, _, _, _ in launches)
+    vector = sum(v for *_, v in launches)
+    print(f"  {label}: {len(launches)} conv_epilogue launches held against "
+          f"the plain version on their own inputs, bits equal in all; "
+          f"{contiguous} of them on a contiguous NHWC y, {vector} 8 channels "
+          f"a thread; shapes {[s for s, *_ in launches]}", flush=True)
+    return launches, plain[0]
+
+
+def epilogue_bound_ms(launches: list) -> tuple:
+    """Least time of the conv epilogue over these launches: the larger of
+    its bytes (each bf16 product read once, each bf16 output written once,
+    the f32 bias and BN scale read once) over HBM bandwidth and its f32
+    operations (:data:`EPILOGUE_OPS` a value) over the non-tensor f32
+    peak."""
+    nbytes = ops = 0
+    for shape, _, bn, leaky, _ in launches:
+        n, c = int(np.prod(shape)), shape[-1]
+        nbytes += 2 * n + 2 * n + 4 * c * (2 if bn else 1)
+        ops += EPILOGUE_OPS[(bn, leaky)] * n
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), nbytes, ops
+
+
+def time_conv_epilogue(progs: dict, canvases, card: str) -> dict:
+    """The conv-epilogue kernel at the b128 batch's shapes, in the bf16
+    serving program with ``detect.fuse_stem`` off (every conv) and pallas
+    (conv0 in the stem kernel): its device time a batch (the profiler's sum
+    over its launches), its bound, and the plain version's time on the same
+    inputs; every launch of both programs held against the plain version
+    bit for bit. Returns {fuse: {ms, plain_ms, bound_ms, bound_by}}."""
+    tag = f"b{canvases.shape[0]}@{canvases.shape[1]}"
+    out = {}
+    for fuse in ("off", "pallas"):
+        infer_fn, net = progs[fuse]
+        by_name = kernel_device_us(lambda: infer_fn(net, canvases), 3)
+        rows = [(key, us) for key, us in by_name.items()
+                if "conv_epilogue_kernel" in key]
+        check(bool(rows), "the profile shows conv_epilogue_kernel")
+        ms = sum(us for _, us in rows) / 1e3
+        launches, plain = check_epilogue_launches(
+            infer_fn, net, canvases, f"{tag} bf16 fuse_stem={fuse}")
+        n_conv = sum(isinstance(s, ConvSpec) for s in infer_fn.model.specs)
+        check(len(launches) == n_conv, f"fuse_stem={fuse}: one launch a conv")
+        bound_ms, bound_by, nbytes, ops = epilogue_bound_ms(launches)
+        print(f"  [{card}] conv_epilogue at {tag}, fuse_stem={fuse}: "
+              f"{len(launches)} launches a batch, kernel {ms:.3f} ms on the "
+              f"device a batch ({bound_ms / ms:.0%} of its bound), bound "
+              f"{bound_ms:.3f} ms ({bound_by}: {nbytes} B, {ops} f32 ops), "
+              f"plain version {plain:.3f} ms on the same inputs, library none",
+              flush=True)
+        for key, us in rows:
+            print(f"    {us / 1e3:8.3f} ms  {key[:90]}", flush=True)
+        out[fuse] = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+    # what one layer costs the host at batch 1 (the device waits for it):
+    # a call through the wrapper and its custom op, through the ctypes
+    # launcher alone, and the plain version's six launches
+    y = torch.randn((1, 13, 13, 1024), device=canvases.device,
+                    dtype=torch.bfloat16)
+    b = torch.zeros(1024, device=canvases.device)
+    host_us = {name: statistics.median(cuda_ms(fn, 50)) * 1e3 for name, fn in (
+        ("wrapper", lambda: conv_epilogue_cuda(y, b, leaky=True)),
+        ("launcher", lambda: cuda_epilogue.launch(y, b, None, True, 0.1)),
+        ("plain", lambda: conv_epilogue_torch(y, b, leaky=True)))}
+    print(f"  [{card}] conv_epilogue a call from Python at (1, 13, 13, 1024): "
+          f"{host_us['wrapper']:.2f} us through the wrapper and its custom "
+          f"op, {host_us['launcher']:.2f} us through the launcher alone; "
+          f"plain version {host_us['plain']:.2f} us", flush=True)
+    return out
+
+
+def plain_epilogue(y, b, scale=None, *, leaky, alpha=0.1):
+    """The forward's epilogue as the plain ops it ran before the kernel
+    (``conv_epilogue_torch``: six elementwise passes), for the A/B."""
+    return conv_epilogue_torch(y, b, scale, leaky=leaky, alpha=alpha)
+
+
+def time_epilogue_ab(progs: dict, run: dict, card: str) -> dict:
+    """The b128 bf16 programs (``fuse_stem`` off and pallas) and the
+    batch-1 path (``build_detector``'s ``infer``, numpy in and out) with the
+    epilogue as the plain ops ("plain": the wrapper replaced by
+    :func:`plain_epilogue`, the program before the kernel) and through the
+    kernel, in turns (plain, kernel, kernel, plain): device ms a batch
+    (median of 5 a turn), peak device memory over each one's b128 calls,
+    batch-1 host ms (median of AB_LATENCY_RUNS a turn). The b128 unfused
+    outputs must be equal bit for bit. Returns {program: {variant: [ms a
+    turn]}} with "peak_gib" {program: {variant: GiB}}."""
+    canvases = run["canvases"]
+    one = canvases[:1].cpu().numpy()
+    variants = {"plain": lambda: mock.patch.object(
+        cuda_epilogue, "conv_epilogue_cuda", plain_epilogue),
+        "kernel": contextlib.nullcontext}
+    res = {p: {v: [] for v in variants} for p in ("off", "pallas", "b1")}
+    peaks = {p: dict.fromkeys(variants, 0) for p in ("off", "pallas")}
+    outs = {}
+    for v in ("plain", "kernel", "kernel", "plain"):
+        with variants[v]():
+            for fuse in ("off", "pallas"):
+                infer_fn, net = progs[fuse]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                res[fuse][v].append(statistics.median(
+                    cuda_ms(lambda: infer_fn(net, canvases), 5)))
+                peaks[fuse][v] = max(peaks[fuse][v],
+                                     torch.cuda.max_memory_allocated())
+            outs[v] = progs["off"][0](progs["off"][1], canvases)
+            run["infer"](one)
+            lat = []
+            for _ in range(AB_LATENCY_RUNS):
+                t0 = time.perf_counter()
+                run["infer"](one)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            res["b1"][v].append(statistics.median(lat))
+    equal = all(torch.equal(outs["plain"][k], outs["kernel"][k])
+                for k in outs["plain"])
+    for prog, label in (("off", f"b{BATCH} bf16 fuse_stem=off"),
+                        ("pallas", f"b{BATCH} bf16 fuse_stem=pallas"),
+                        ("b1", "batch-1 latency (host, numpy in and out)")):
+        t = res[prog]
+        mem = (f"; peak device memory plain {peaks[prog]['plain'] / 2**30:.2f}"
+               f" GiB, kernel {peaks[prog]['kernel'] / 2**30:.2f} GiB"
+               if prog in peaks else "")
+        print(f"  [{card}] A/B {label}, plain epilogue vs kernel, ms in turns "
+              f"(plain, kernel, kernel, plain): "
+              f"{t['plain'][0]:.3f}, {t['kernel'][0]:.3f}, "
+              f"{t['kernel'][1]:.3f}, {t['plain'][1]:.3f} (means "
+              f"{statistics.mean(t['plain']):.3f} vs "
+              f"{statistics.mean(t['kernel']):.3f}){mem}", flush=True)
+    print(f"  b{BATCH} fuse_stem=off outputs, plain epilogue vs kernel, equal "
+          f"bit for bit: {equal}", flush=True)
+    check(equal, "the program's outputs with the kernel == with the plain "
+                 "epilogue")
+    res["peak_gib"] = {p: {v: b / 2**30 for v, b in d.items()}
+                       for p, d in peaks.items()}
+    return res
 
 
 def write_ppms(images: list, root: str) -> list:
@@ -2588,21 +2901,6 @@ def print_mfu(card: str, label: str, images_per_sec: float,
 # ---------------------------------------------------------------------------
 
 
-def _reset_launches() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    for kern in (nms_greedy_cuda, stem_fused_cuda, int8_requant_cuda):
-        kern.launches = 0
-
-
-def _launches() -> dict:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return {"nms_greedy": nms_greedy_cuda.launches,
-            "stem_fused": stem_fused_cuda.launches,
-            "int8_requant": int8_requant_cuda.launches}
-
-
 def _world_one_rank(rank: int, cache_dir: str, root: str, port: int,
                     cpu: list, overrides: list) -> dict:
     """(a), in a process of its own: ``cli.train`` on config.ini (train.zero=1,
@@ -2700,6 +2998,10 @@ def check_world_one(tr: dict, tmp: str, device, card: str,
     check(g["launches"]["nms_greedy"] == g["launches"]["stem_fused"]
           == batches, "the world-1 in-training eval: each kernel once a "
                       "batch")
+    fused = conv_count(load_config(["config.ini"], overrides)) - 1
+    check(g["launches"]["conv_epilogue"] == fused * batches,
+          f"the world-1 run: {fused} conv epilogues an eval batch, none in "
+          "its train steps")
     return g["launches"]
 
 
@@ -2988,12 +3290,15 @@ def check_multi_eval(npz: str, ev: dict, tmp: str, device,
           "plain eval: the second process waited for the primary")
     check(same, "distributed eval's detections == the plain run's")
     per_process = MULTI_EVAL_IMAGES // 2
+    fused = conv_count(load_config(["config.ini"], overrides)) - 1
     for r in dist_res:
         check(r["metrics"]["num_images"] == MULTI_EVAL_IMAGES
               and abs(r["metrics"]["map"] - want["map"]) <= 1e-6,
               "distributed metrics == the plain run's on every process")
         check(r["launches"]["nms_greedy"] == r["launches"]["stem_fused"]
-              == per_process, "each process: each kernel once an image")
+              == per_process and r["launches"]["conv_epilogue"]
+              == fused * per_process, "each process: each kernel once an "
+                                      f"image ({fused} conv epilogues)")
     check(bool(dist_res[0]["printed"]) and not dist_res[1]["printed"],
           "only the primary prints")
     return launches
@@ -3069,12 +3374,17 @@ def check_data_parallel_serving(npz: str, ev: dict, device,
     check(dp == plain and bool(plain), "detect --data-parallel == plain")
     check(any("only 1 local device" in m for m in said),
           "detect --data-parallel warned of the one device")
-    check(detect_launches["nms_greedy"] == detect_launches["stem_fused"] == 1,
+    n_conv = conv_count(cfg)
+    check(detect_launches["nms_greedy"] == detect_launches["stem_fused"] == 1
+          and detect_launches["conv_epilogue"] == n_conv - 1,
           "detect --data-parallel: one batch, each kernel once")
     check(devices == (1, 1), "/healthz and /stats report 1 device")
     check(answers[True] == answers[False], "serve --data-parallel == plain")
     check(serve_launches["nms_greedy"] == stats[(True, "/stats")]["batches"]
-          >= 1, "serve --data-parallel: one NMS launch a batch")
+          >= 1 and serve_launches["conv_epilogue"]
+          == n_conv * serve_launches["nms_greedy"],
+          f"serve --data-parallel: one NMS and {n_conv} conv-epilogue "
+          "launches a batch")
     return {"dp_detect": detect_launches, "dp_serve": serve_launches}
 
 
@@ -3201,7 +3511,7 @@ def check_tf_spec(npz: str, calib: torch.Tensor, device,
           f"{len(codes)} layers' w_q codes and the head equal, largest "
           f"act-scale difference {scale_rel:.3e} relative "
           f"({len(scales)} scales); launches {launches}", flush=True)
-    check(launches == {"nms_greedy": 0, "stem_fused": 0, "int8_requant": 0},
+    check(launches == dict.fromkeys(KERNEL_NAMES, 0),
           "the portable builds launched no kernel")
     return launches
 
@@ -3302,6 +3612,8 @@ def main() -> int:
     nms_err = compare_kernels(device, cfg.detect.nms_iou)
     requant_err = compare_requant(device)
     compare_products(device)
+    epilogue_err = compare_epilogue(device)
+    n_conv = conv_count(cfg)
 
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "darknet19_seed0.npz")
@@ -3317,6 +3629,9 @@ def main() -> int:
         run = drive_main_path(cfg, npz, device, BATCH)
         check(run["launches"] >= 2, "the main path launched the NMS kernel "
                                     "(run_detect's batch and the b128 batch)")
+        check(run["epilogue_launches"] == n_conv * run["launches"]
+              - run["stem_launches"], f"the main path launched the conv "
+                                      f"epilogue {n_conv} times a batch")
         shifted, valid, keep = check_main_path(cfg, run["out"], device)
         model = check_forward(cfg, npz, device, 96)
 
@@ -3324,24 +3639,30 @@ def main() -> int:
         batches = -(-EVAL_IMAGES // EVAL_BATCH)
         check(ev["launches"]["stem_fused"] == ev["launches"]["nms_greedy"]
               == batches, "the eval path launched each kernel once a batch")
+        check(ev["launches"]["conv_epilogue"] == (n_conv - 1) * batches,
+              f"the eval path: {n_conv - 1} conv epilogues a batch")
         check_fused_head(cfg, npz, ev["cache_dir"], device)
 
         check_int8_card_vs_cpu(device)
         i8 = drive_int8_cli(npz, tmp, ev, device)
         # the int8 convs: every conv but the bf16 head
-        n_int8 = sum(isinstance(s, ConvSpec)
-                     for s in cfg.build_model().specs) - 1
+        n_int8 = n_conv - 1
         for path, images in (("int8_detect", 1), ("int8_stdin", 3),
                              ("int8_eval", batches)):
             got = i8["launches"][path]
-            check(got["int8_requant"] == n_int8 * images
-                  and got["nms_greedy"] == images and got["stem_fused"] == 0,
-                  f"{path}: int8_requant {n_int8} and nms_greedy once a batch")
+            check(got == {"nms_greedy": images, "stem_fused": 0,
+                          "int8_requant": n_int8 * images,
+                          "conv_epilogue": 0},
+                  f"{path}: int8_requant {n_int8} and nms_greedy once a "
+                  "batch, no conv epilogue")
 
         tr = drive_train_path(tmp, device, EVAL_IMAGES)
         check(tr["launches"]["stem_fused"] == tr["launches"]["nms_greedy"]
               == batches, "the in-training eval launched each kernel once "
                           "a batch")
+        check(tr["launches"]["conv_epilogue"] == (n_conv - 1) * batches,
+              "the train steps launch no conv epilogue, the in-training "
+              f"eval {n_conv - 1} a batch")
         check_checkpoint_as_weights(tr, device)
         check_train_card_vs_cpu(device)
         _, _, om, onet = check_overfit(device)
@@ -3387,22 +3708,22 @@ def main() -> int:
                         "serve": served["launches"],
                         "artifact_stdin": art_cli["artifact_stdin"]}
         art_batches = -(-EVAL_IMAGES // ART_BATCH)
-        for what, got, (nms, stem, requant) in (
+        for what, got, want in (
                 ("the QAT npz's int8 eval", qr["launches"],
-                 (batches, 0, n_int8 * batches)),
+                 (batches, 0, n_int8 * batches, 0)),
                 ("artifact bf16_fused_b8", art_run["launches"]["bf16_fused_b8"],
-                 (1, 1, 0)),
+                 (1, 1, 0, n_conv - 1)),
                 ("artifact int8_b8", art_run["launches"]["int8_b8"],
-                 (1, 0, n_int8)),
-                ("artifact bf16_b1", art_run["launches"]["bf16_b1"], (1, 0, 0)),
+                 (1, 0, n_int8, 0)),
+                ("artifact bf16_b1", art_run["launches"]["bf16_b1"],
+                 (1, 0, 0, n_conv)),
                 ("the daemon", served["launches"],
-                 (served["batches"], 0, n_int8 * served["batches"])),
+                 (served["batches"], 0, n_int8 * served["batches"], 0)),
                 ("cli.detect --artifact --stdin", art_cli["artifact_stdin"],
-                 (3, 0, 0)),
+                 (3, 0, 0, 3 * n_conv)),
                 ("cli.eval --artifact", art_cli["artifact_int8"],
-                 (art_batches, 0, n_int8 * art_batches))):
-            check(got == {"nms_greedy": nms, "stem_fused": stem,
-                          "int8_requant": requant},
+                 (art_batches, 0, n_int8 * art_batches, 0))):
+            check(got == dict(zip(KERNEL_NAMES, want)),
                   f"{what} launched its kernels inside the program")
 
         cfg_path = check_cfg_specs(tmp)
@@ -3413,12 +3734,12 @@ def main() -> int:
             "camera": drive_camera(npz, tmp, device, int8=False),
             "camera_int8": drive_camera(npz, tmp, device, int8=True)}
         for path, want in (
-                ("weights_detect", (1, 1, 0)),
-                ("camera", (CAMERA_FRAMES, 0, 0)),
-                ("camera_int8", (CAMERA_FRAMES, 0, n_int8 * CAMERA_FRAMES))):
-            check(tool_launches[path] == dict(zip(
-                ("nms_greedy", "stem_fused", "int8_requant"), want)),
-                f"{path}: launches {want} (nms, stem, requant)")
+                ("weights_detect", (1, 1, 0, n_conv - 1)),
+                ("camera", (CAMERA_FRAMES, 0, 0, n_conv * CAMERA_FRAMES)),
+                ("camera_int8", (CAMERA_FRAMES, 0, n_int8 * CAMERA_FRAMES,
+                                 0))):
+            check(tool_launches[path] == dict(zip(KERNEL_NAMES, want)),
+                  f"{path}: launches {want} (nms, stem, requant, epilogue)")
         drive_host_tools(tr, device)
 
         print(f"phase times [{card}]:", flush=True)
@@ -3429,9 +3750,11 @@ def main() -> int:
             got = count_launches(lambda: infer_fn(net, run["canvases"]))
             print(f"  b{BATCH} {fuse} batch launches {got}", flush=True)
             check(got == {"nms_greedy": 1, "stem_fused": 0,
-                          "int8_requant": n_int8},
+                          "int8_requant": n_int8, "conv_epilogue": 0},
                   f"{fuse}: one NMS and {n_int8} requant launches a batch")
         fusion_ms = time_fusion(progs, run["canvases"], card)
+        epilogue_times = time_conv_epilogue(progs, run["canvases"], card)
+        ab = time_epilogue_ab(progs, run, card)
         stem_times = time_stem(progs, run["canvases"], card)
         nms_times = time_nms(shifted, valid, keep, cfg.detect.nms_iou, card)
         requant_times = time_int8_requant(progs, run["canvases"], card)
@@ -3480,7 +3803,9 @@ def main() -> int:
                       **{p: tf_run[p][name] for p in TF_PATHS}}
                for name, serving in (("nms_greedy", run["launches"]),
                                      ("stem_fused", run["stem_launches"]),
-                                     ("int8_requant", run["int8_launches"]))}
+                                     ("int8_requant", run["int8_launches"]),
+                                     ("conv_epilogue",
+                                      run["epilogue_launches"]))}
     print(json.dumps({"kernels": [{
         "name": "nms_greedy",
         "route": "cuda",
@@ -3514,6 +3839,23 @@ def main() -> int:
         "max_abs_err": requant_err,
         **requant_times,
         "library_ms": None,
+    }, {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "yolojax_torch/csrc/conv_epilogue.cu",
+        "replaces": "XLA epilogue fusion in yolojax/nn/layers.py:395-420",
+        "launches": run["epilogue_launches"],
+        "launches_by_path": by_path["conv_epilogue"],
+        "max_abs_err": epilogue_err,
+        **epilogue_times["off"],
+        "library_ms": None,
+        "fused_stem": epilogue_times["pallas"],
+        "ab_plain_vs_kernel": {
+            p: [statistics.mean(ab[p]["plain"]),
+                statistics.mean(ab[p]["kernel"])]
+            for p in ("off", "pallas", "b1")},
+        "peak_gib_plain_vs_kernel": {
+            p: [v["plain"], v["kernel"]] for p, v in ab["peak_gib"].items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,10 @@ def _op_cases():
         np.int32))
     m = torch.from_numpy(rng.uniform(1e-4, 1e-3, 64).astype(np.float32))
     bias = torch.from_numpy(rng.normal(0, 0.5, 64).astype(np.float32))
+    y = torch.from_numpy(rng.normal(0, 2, (2, 5, 7, 125)).astype(
+        np.float32)).bfloat16()
+    shift = torch.from_numpy(rng.normal(0, 0.5, 125).astype(np.float32))
+    inv = torch.from_numpy(rng.uniform(0.5, 1.5, 125).astype(np.float32))
     return {
         "nms_greedy": (ops.nms_greedy, (boxes, valid, 0.45)),
         "stem_fused": (ops.stem_fused, (x, wp, b)),
@@ -52,6 +56,9 @@ def _op_cases():
                          (wide[:, :64], m, bias, 1.0 / 0.037, 127, True, 1)),
         "int8_requant_phases": (ops.int8_requant,
                                 (wide[:, :64], m, bias, 25.0, 15, True, 4)),
+        # the v2 head's width; the folded bias, and BN's (inv, shift)
+        "conv_epilogue": (ops.conv_epilogue, (y, shift, None, False, 0.1)),
+        "conv_epilogue_bn": (ops.conv_epilogue, (y, shift, inv, True, 0.1)),
     }
 
 

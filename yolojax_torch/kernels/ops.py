@@ -1,4 +1,4 @@
-"""The port's three hand kernels as PyTorch custom operators.
+"""The port's four hand kernels as PyTorch custom operators.
 
 Each kernel is one ``torch.library.custom_op`` in the ``yolojax_torch``
 namespace: its CPU implementation is the kernel's plain version, its CUDA
@@ -9,16 +9,20 @@ but it keeps a custom operator as one node, so an exported serving
 artifact (``yolojax_torch/serve``) carries the kernels themselves: it runs
 them on the card and their plain versions on the CPU, as the live program
 does. The wrappers (``postprocess/cuda_nms.py``, ``nn/cuda_stem.py``,
-``quantize/cuda_int8.py``) check their arguments and call these operators;
-the launch counters stay on the wrappers and count only real launches.
+``quantize/cuda_int8.py``, ``nn/cuda_epilogue.py``) check their arguments
+and call these operators; the launch counters stay on the wrappers and
+count only real launches.
 
 Importing this module registers the operators; it loads no CUDA library.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from yolojax_torch.nn.layers import conv_epilogue_torch
 from yolojax_torch.nn.stem import stem_fused_torch
 from yolojax_torch.postprocess.nms import nms_greedy_torch
 from yolojax_torch.quantize.int8_ops import int8_requant_torch
@@ -88,3 +92,25 @@ def _int8_requant_cuda(acc, m, b, r, qmax, leaky, phases):
 def _int8_requant_fake(acc, m, b, r, qmax, leaky, phases):
     return acc.new_empty((acc.shape[0], acc.shape[1] // phases),
                          dtype=torch.int8)
+
+
+@torch.library.custom_op("yolojax_torch::conv_epilogue", mutates_args=(),
+                         device_types="cpu")
+def conv_epilogue(y: torch.Tensor, b: torch.Tensor,
+                  scale: Optional[torch.Tensor], leaky: bool,
+                  alpha: float) -> torch.Tensor:
+    """bf16 conv/dense output (..., C) -> f32 + bias (or * scale + bias)
+    -> leaky -> bf16 (..., C)."""
+    return conv_epilogue_torch(y, b, scale, leaky=leaky, alpha=alpha)
+
+
+@conv_epilogue.register_kernel("cuda")
+def _conv_epilogue_cuda(y, b, scale, leaky, alpha):
+    from yolojax_torch.nn.cuda_epilogue import launch
+
+    return launch(y, b, scale, leaky, alpha)
+
+
+@conv_epilogue.register_fake
+def _conv_epilogue_fake(y, b, scale, leaky, alpha):
+    return y.new_empty(y.shape, dtype=torch.bfloat16)

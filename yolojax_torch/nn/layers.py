@@ -13,8 +13,10 @@ copies between layouts. Conv kernels are stored OIHW (PyTorch's order);
 
 The forward runs in eval mode (running BN statistics, the fused stem of
 ``nn/stem.py``: ``StemSpec`` / ``NoOpSpec``, weights in a
-:class:`StemLayer`) or in train mode (batch BN statistics, dropout); the
-int8 trunk comes in a later slice.
+:class:`StemLayer`; at bf16 each conv and dense epilogue in one
+:func:`conv_epilogue_torch` pass, the CUDA kernel of
+``nn/cuda_epilogue.py`` on the card) or in train mode (batch BN
+statistics, dropout); the int8 trunk is ``quantize/ptq.py``.
 """
 
 from __future__ import annotations
@@ -125,17 +127,41 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
     return y.permute(0, 2, 3, 1)
 
 
+def bn_affine(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+              var: torch.Tensor, *,
+              eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """BN's per-channel f32 ``(inv, shift)``: inv = rsqrt(var + eps) *
+    scale, shift = bias - mean * inv, yolojax's operation order."""
+    inv = torch.rsqrt(var.float() + eps) * scale.float()
+    return inv, bias.float() - mean.float() * inv
+
+
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                mean: torch.Tensor, var: torch.Tensor, *,
                eps: float = 1e-5) -> torch.Tensor:
-    """Inference-form BN in f32: y = x * inv + (bias - mean * inv) with
-    inv = rsqrt(var + eps) * scale, yolojax's operation order."""
-    inv = torch.rsqrt(var.float() + eps) * scale.float()
-    return x.float() * inv + (bias.float() - mean.float() * inv)
+    """Inference-form BN in f32: y = x * inv + shift (:func:`bn_affine`)."""
+    inv, shift = bn_affine(scale, bias, mean, var, eps=eps)
+    return x.float() * inv + shift
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, alpha * x)
+
+
+def conv_epilogue_torch(y: torch.Tensor, b: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None, *,
+                        leaky: bool, alpha: float = 0.1) -> torch.Tensor:
+    """The eval-mode epilogue of a bf16 conv or dense layer, the plain
+    version of ``csrc/conv_epilogue.cu``: y (..., C) bf16 -> f32, + b (the
+    folded bias) or * scale + b (BN's ``bn_affine``), leaky, -> bf16. The
+    f32 operations and their order are the forward's own, so the result is
+    bit-equal to it; yolojax's XLA fuses the same sequence
+    (``yolojax/nn/layers.py:395-420``, dense ``:431-440``)."""
+    z = y.float()
+    z = z + b if scale is None else z * scale + b
+    if leaky:
+        z = leaky_relu(z, alpha)
+    return z.to(torch.bfloat16)
 
 
 def max_pool(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
@@ -289,9 +315,18 @@ class Network(nn.Module):
         gradients) and dropout draws the global batch's mask and keeps
         this rank's rows. Over model ranks, a conv whose kernel holds a
         slice of its output channels (``parallel/sharding.py``) computes
-        that slice, and the slices are gathered after its epilogue."""
+        that slice, and the slices are gathered after its epilogue.
+
+        In eval mode at bf16 (and no model-parallel mesh) each conv and
+        dense epilogue is one ``yolojax_torch::conv_epilogue`` call
+        (``nn/cuda_epilogue.py``: the kernel on the card,
+        :func:`conv_epilogue_torch` on the CPU), bit-equal to the plain ops
+        that f32 programs and train mode run."""
         dp = mesh is not None and mesh.data > 1
         tp = mesh is not None and mesh.model > 1
+        one_pass = not train and not tp and compute_dtype == torch.bfloat16
+        if one_pass:
+            from yolojax_torch.nn.cuda_epilogue import conv_epilogue_cuda
         x = images
         outputs = []
         new_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -319,26 +354,36 @@ class Network(nn.Module):
                 if tp_layer:
                     x = copy_to_model(x, mesh)
                 y = conv2d(x, layer.w, spec.stride,
-                           compute_dtype=compute_dtype).float()
-                if spec.bn:
-                    if train:
-                        m, v = _batch_moments(y, mesh if dp else None)
-                        new_state[_conv_name(i)] = (
-                            layer.mean * bn_momentum
-                            + m.detach() * (1 - bn_momentum),
-                            layer.var * bn_momentum
-                            + v.detach() * (1 - bn_momentum))
-                    else:
-                        m, v = layer.mean, layer.var
-                    y = batch_norm(y, layer.scale, layer.bias, m, v,
-                                   eps=bn_eps)
+                           compute_dtype=compute_dtype)
+                if one_pass:
+                    scale, shift = (bn_affine(layer.scale, layer.bias,
+                                              layer.mean, layer.var,
+                                              eps=bn_eps)
+                                    if spec.bn else (None, layer.b.float()))
+                    x = conv_epilogue_cuda(y, shift, scale,
+                                           leaky=spec.act == "leaky",
+                                           alpha=leaky_alpha)
                 else:
-                    y = y + layer.b.float()
-                if spec.act == "leaky":
-                    y = leaky_relu(y, leaky_alpha)
-                if tp_layer:  # gathered in f32: gloo takes no bf16 sums
-                    y = gather_from_model(y, mesh)
-                x = y.to(compute_dtype)
+                    y = y.float()
+                    if spec.bn:
+                        if train:
+                            m, v = _batch_moments(y, mesh if dp else None)
+                            new_state[_conv_name(i)] = (
+                                layer.mean * bn_momentum
+                                + m.detach() * (1 - bn_momentum),
+                                layer.var * bn_momentum
+                                + v.detach() * (1 - bn_momentum))
+                        else:
+                            m, v = layer.mean, layer.var
+                        y = batch_norm(y, layer.scale, layer.bias, m, v,
+                                       eps=bn_eps)
+                    else:
+                        y = y + layer.b.float()
+                    if spec.act == "leaky":
+                        y = leaky_relu(y, leaky_alpha)
+                    if tp_layer:  # gathered in f32: gloo takes no bf16 sums
+                        y = gather_from_model(y, mesh)
+                    x = y.to(compute_dtype)
             elif isinstance(spec, MaxPoolSpec):
                 x = max_pool(x, spec.size, spec.stride)
             elif isinstance(spec, ReorgSpec):
@@ -350,15 +395,19 @@ class Network(nn.Module):
                 x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
             elif isinstance(spec, DenseSpec):
                 layer = getattr(self, _dense_name(i))
-                y = F.linear(x.to(compute_dtype),
-                             layer.w.to(compute_dtype)).float()
+                y = F.linear(x.to(compute_dtype), layer.w.to(compute_dtype))
                 b = layer.b
                 if tp and b.shape[0] != spec.out:  # a long bias is split
                     b = gather_from_model(b, mesh)
-                y = y + b.float()
-                if spec.act == "leaky":
-                    y = leaky_relu(y, leaky_alpha)
-                x = y.to(compute_dtype)
+                if one_pass:
+                    x = conv_epilogue_cuda(y, b.float(),
+                                           leaky=spec.act == "leaky",
+                                           alpha=leaky_alpha)
+                else:
+                    y = y.float() + b.float()
+                    if spec.act == "leaky":
+                        y = leaky_relu(y, leaky_alpha)
+                    x = y.to(compute_dtype)
             elif isinstance(spec, DropoutSpec):
                 if train:  # eval mode: identity
                     if generator is None:
