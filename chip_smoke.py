@@ -17,9 +17,14 @@ Phases, each of which raises on failure:
    the seeded Darknet-19's conv0 weights (and ``detect.fuse_stem=auto``
    launches it, as ``pallas`` does), the int8 requant kernel's codes equal
    on seven cases (both modes), the int8 product's int32 sums equal to
-   an exact CPU product on seven convs and dense layers, and the bf16 conv
+   an exact CPU product on seven convs and dense layers, the bf16 conv
    epilogue kernel's output bits equal on fourteen cases (bias, BN and
-   linear modes, C = 125, dense layers, column slices, the specials);
+   linear modes, C = 125, dense layers, column slices, the specials), and
+   the train-mode kernels on ten cases (conv 0 at the b64@416 step's full
+   size, C = 1024 and 125, ragged rows, a column-slice gradient, values
+   near 256, a dense layer, unaligned slices, z = +-0): each sum within
+   ``nn/cuda_bn_train.py::SUM_RTOL`` of a float64 sum of its terms, dy
+   bits equal to the plain version given the same sums;
 4. drive the serving path as a user does (``build_detector`` and
    ``run_detect`` on YOLOv2 Darknet-19 at 416, full width, random weights
    from a seed), count the kernel launches of that run, check the path's
@@ -34,10 +39,14 @@ Phases, each of which raises on failure:
    a val phase, then ``cli.train`` on ``config.ini``: Darknet-19 at 416,
    batch 64, six steps with checkpoints, the EMA and an in-training eval
    through both kernels; then a resume to step 8), count its kernel
-   launches, load its checkpoint directory in ``cli.eval`` and, with the
-   EMA weights, ``cli.detect``; hold one f32 train step on the card
-   against the CPU (a small v2, TF32 off) and the augmentation apply on
-   the card against the CPU, and overfit a four-conv model on the card;
+   launches (every step's 23 conv epilogues, 44 batch-statistics sums and
+   23 + 23 backward launches of the train-mode kernels), load its
+   checkpoint directory in ``cli.eval`` and, with the EMA weights,
+   ``cli.detect``; hold one f32 train step on the card against the CPU (a
+   small v2, TF32 off) and the augmentation apply on the card against the
+   CPU, one full-width b64@416 bf16 step with the train-mode kernels
+   against the same step with the plain ops (loss terms, gradients, BN
+   statistics), and overfit a four-conv model on the card in bf16;
 7. drive the int8 path (``detect.use_int8=1``) as a user does:
    ``cli.detect --image``, ``cli.detect --stdin`` (output order) and
    ``cli.eval``, each counting its launches; hold small int8 models'
@@ -73,7 +82,11 @@ Phases, each of which raises on failure:
    every one of their launches held against the plain version bit for
    bit, and the A/B of those programs and of batch 1 with the plain
    epilogue and with the kernel, peak memory beside it; the b64@416 train
-   step), check that the fused-stem batch beats the unfused one, and print
+   step, every launch of the train-mode kernels in one step held against
+   its plain version, each kernel's time a step against its bound and the
+   nearest library call, and the A/B of the step with the plain ops and
+   with the kernels, peak memory beside it), check that the fused-stem
+   batch beats the unfused one, and print
    the MFU of the timed programs over the H100's peaks
    (``utils/flops.py``);
 11. multi-device: ``cli.train`` in a world-1 ``nccl`` group against no
@@ -147,20 +160,34 @@ from yolojax_torch.eval.evaluator import evaluate_model, serving_weights
 from yolojax_torch.kernels import build
 from yolojax_torch.kernels import ops as kernel_ops
 from yolojax_torch.models import Model, get_model
-from yolojax_torch.nn import cuda_epilogue, cuda_stem
+from yolojax_torch.nn import cuda_bn_train, cuda_epilogue, cuda_stem
+from yolojax_torch.nn import layers as nn_layers
+from yolojax_torch.nn import train_epilogue
 from yolojax_torch.parallel import distributed, launch
 from yolojax_torch.parallel.mesh import make_mesh, shard_batch
 from yolojax_torch.parallel.sharding import Plan
+from yolojax_torch.nn.cuda_bn_train import (
+    SUM_RTOL,
+    bn_channel_sums_cuda,
+    epilogue_grad_apply_cuda,
+    epilogue_grad_sums_cuda,
+    rows_of_grad,
+)
 from yolojax_torch.nn.cuda_epilogue import conv_epilogue_cuda
 from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import (
     ConvSpec,
+    DenseSpec,
     MaxPoolSpec,
     RouteSpec,
     _darknet_padding,
+    batch_norm,
     bn_affine,
+    bn_channel_sums_torch,
     conv2d,
     conv_epilogue_torch,
+    epilogue_grad_apply_torch,
+    epilogue_grad_sums_torch,
     leaky_relu,
     max_pool,
 )
@@ -213,12 +240,19 @@ FORWARD_RTOL = 1e-4
 KERNELS = (("nms_greedy", cuda_nms.NVCC_FLAGS),
            ("stem_fused", cuda_stem.NVCC_FLAGS),
            ("int8_requant", cuda_int8.NVCC_FLAGS),
-           ("conv_epilogue", cuda_epilogue.NVCC_FLAGS))
+           ("conv_epilogue", cuda_epilogue.NVCC_FLAGS),
+           ("bn_train", cuda_bn_train.NVCC_FLAGS))
 # every kernel's wrapper, whose ``launches`` counts its real launches
 WRAPPERS = (("nms_greedy", nms_greedy_cuda), ("stem_fused", stem_fused_cuda),
             ("int8_requant", int8_requant_cuda),
-            ("conv_epilogue", conv_epilogue_cuda))
+            ("conv_epilogue", conv_epilogue_cuda),
+            ("bn_channel_sums", bn_channel_sums_cuda),
+            ("epilogue_grad_sums", epilogue_grad_sums_cuda),
+            ("epilogue_grad_apply", epilogue_grad_apply_cuda))
 KERNEL_NAMES = tuple(name for name, _ in WRAPPERS)
+# the train-mode epilogue's kernels (csrc/bn_train.cu), which only a bf16
+# train step launches
+TRAIN_KERNELS = KERNEL_NAMES[4:]
 # (N, H, W) inputs of the stem kernel against its plain version: the eval
 # batch, one image, a smaller and a larger (multiscale 608) square, a tiny
 # one, and a ragged one (W/2 = 67 is no multiple of the tile's 32 columns,
@@ -263,6 +297,31 @@ EPILOGUE_OPS = {(False, False): 3, (False, True): 6, (True, True): 7,
                 (True, False): 4}  # (BN scale, leaky)
 # the batch-1 program's latency, plain epilogue vs kernel, in turns
 AB_LATENCY_RUNS = 50
+# f32 operations of one value in the train-mode kernels, by (kernel, mode):
+# Σy an add; Σ(y - m)² a subtract, multiply, add; the backward's sums z
+# (multiply, add), leaky's compare + multiply + select, Σdz an add, x̂ a
+# subtract and a multiply, Σdz·x̂ a multiply and an add; dy z, leaky, x̂,
+# two subtracts and two multiplies, the cast; a linear bias layer's dz is g
+TRAIN_OPS = {("bn_channel_sums", "sum"): 1, ("bn_channel_sums", "centred"): 3,
+             ("epilogue_grad_sums", "bn"): 10,
+             ("epilogue_grad_sums", "bias"): 5,
+             ("epilogue_grad_sums", "linear"): 1,
+             ("epilogue_grad_apply", "bn"): 12,
+             ("epilogue_grad_apply", "bias"): 5,
+             ("epilogue_grad_apply", "linear"): 1}
+# one full-width b64@416 config.ini step with the train-mode kernels vs the
+# same step with the plain ops, from one state and seeds, cuDNN
+# deterministic: the kernels' sums take another f32 order than torch's, so
+# a statistic may move in its last bit and flip a bf16 value of x or dy,
+# and the flips spread through 23 layers until the two steps differ by
+# bf16 noise (an H100 measured the plain step against itself with its BN
+# sums taken in two halves 9.2e-3 apart in the loss and 0.31 of the
+# largest gradient). So each quantity is held to the larger of a bound and
+# twice that floor, measured in the same run: loss terms relative, the
+# gradients' largest difference of the tree's max |.| and their
+# difference's norm over the tree's norm, BN statistics of their max |.|
+TRAIN_AB_LIMITS = {"loss": 1e-3, "grads": 5e-2, "grads_l2": 1e-2,
+                   "bn": 1e-4}
 INT8_PATHS = ("int8_detect", "int8_stdin", "int8_eval")
 # phase 9: QAT -> export -> serve. cli.qat's steps on config.ini; the
 # artifacts' fixed batch; the daemon's load
@@ -322,6 +381,13 @@ def _reset_launches() -> None:
         torch.cuda.synchronize()
     for _, kern in WRAPPERS:
         kern.launches = 0
+    rows_of_grad.copies = 0
+
+
+def expect(*counts) -> dict:
+    """The launch counts of KERNEL_NAMES in order, the ones not given 0."""
+    return dict(zip(KERNEL_NAMES, counts + (0,) * (len(KERNEL_NAMES)
+                                                   - len(counts))))
 
 
 def _launches() -> dict:
@@ -702,6 +768,206 @@ def compare_epilogue(device) -> float:
     return worst
 
 
+def bn_train_cases(device, conv0=(64, 416, 416, 32)) -> dict:
+    """Inputs (y, g, scale, bias, mode) of the train-mode kernels on
+    ``device``, mode "bn" (BN + leaky), "bias" (bias + leaky) or "linear"
+    (bias): conv 0 at the b64@416 step's full size (11.08 M rows a
+    channel), C = 1024 and the v2 head's C = 125 at b64@13, a ragged row
+    count, ``g`` a column slice of a wider gradient as the route's
+    ``torch.cat`` backward hands it over, values near 256 (where the
+    variance is a small difference of large sums, so the centred pass
+    matters), a dense layer, ``y`` and ``g`` unaligned column slices, and
+    z = +-0 (y = -bias exactly, a zero channel with a zero bias, y and
+    the bias -0.0)."""
+    gen = torch.Generator(device).manual_seed(SEED + 21)
+
+    def bf16(shape, mean=0.0, std=2.0):
+        return (mean + std * torch.randn(shape, device=device,
+                                         generator=gen)).to(torch.bfloat16)
+
+    def vec(c, lo, hi):
+        return lo + (hi - lo) * torch.rand(c, device=device, generator=gen)
+
+    cases = {}
+
+    def add(label, y, g, mode, bias=None):
+        c = y.shape[-1]
+        cases[label] = (y, g, vec(c, 0.5, 1.5),
+                        vec(c, -0.5, 0.5) if bias is None else bias, mode)
+
+    add(f"C32 BN leaky (conv 0 at b64@416: {np.prod(conv0[:3])} rows)",
+        bf16(conv0),
+        bf16(conv0, std=1e-3), "bn")
+    add("C1024 BN leaky (b64@13)", bf16((64, 13, 13, 1024)),
+        bf16((64, 13, 13, 1024)), "bn")
+    add("C125 bias linear (the v2 head at b64@13)", bf16((64, 13, 13, 125)),
+        bf16((64, 13, 13, 125)), "linear")
+    add("C64 BN leaky, ragged rows (3x97x101)", bf16((3, 97, 101, 64)),
+        bf16((3, 97, 101, 64)), "bn")
+    route = bf16((64, 13, 13, 1280))
+    add("C1024 BN leaky, g channels 256:1280 of the route's 1280",
+        bf16((64, 13, 13, 1024)), route[..., 256:], "bn")
+    add("C256 BN leaky, values near 256 (centred pass)",
+        bf16((16, 26, 26, 256), mean=256.0), bf16((16, 26, 26, 256)), "bn")
+    add("dense 4096 bias leaky (v1)", bf16((64, 4096)), bf16((64, 4096)),
+        "bias")
+    add("C256 bias leaky, y and g unaligned column slices (ld 264)",
+        bf16((4099, 264))[:, 3:259], bf16((4099, 264))[:, 5:261], "bias")
+    # z = +-0: y = -bias, y = -0.0 with a -0.0 bias, one bf16 step below
+    c = 64
+    bias = vec(c, -0.5, 0.5).bfloat16().float()
+    bias[::4] = -0.0
+    y = bf16((512, c)).float()
+    y[0::3] = -bias
+    y[1::3] = torch.where(torch.arange(c, device=device) % 4 == 0,
+                          torch.full_like(bias, -0.0), bf16_below(-bias))
+    add("C64 bias leaky, z = +-0 and one bf16 step below", y.bfloat16(),
+        bf16((512, c)), "bias", bias)
+    y = bf16((8, 20, 20, c))
+    y[..., 0] = 0.0
+    scale_bias = vec(c, -0.5, 0.5)
+    scale_bias[0] = 0.0
+    add("C64 BN leaky, a zero channel with a zero bias (z = +0)", y,
+        bf16((8, 20, 20, c)), "bn", scale_bias)
+    return cases
+
+
+def bf16_below(t: torch.Tensor) -> torch.Tensor:
+    """The next bf16 value below each bf16 value of f32 ``t``."""
+    b = t.bfloat16().view(torch.int16).int()
+    b = torch.where(t > 0, b - 1, torch.where(t < 0, b + 1,
+                                              torch.full_like(b, -32767)))
+    return b.to(torch.int16).view(torch.bfloat16).float()
+
+
+def _f64_sums(terms: torch.Tensor) -> tuple:
+    """Per-channel float64 sum of f32 ``terms`` (..., C) and the sum of
+    their magnitudes."""
+    t = terms.reshape(-1, terms.shape[-1]).double()
+    return t.sum(0), t.abs().sum(0)
+
+
+def _sums_ratio(got: torch.Tensor, terms: torch.Tensor) -> float:
+    """The kernel's sums' largest distance from the float64 sum of their
+    f32 terms, over the stated bound SUM_RTOL * sum(|terms|) (<= 1)."""
+    ref, mag = _f64_sums(terms)
+    return float(((got.double() - ref).abs()
+                  / (SUM_RTOL * mag).clamp_min(1e-300)).max())
+
+
+def grad_terms(g, y, inv, shift, m, rstd, leaky: bool) -> list:
+    """The f32 terms the backward's sums add, computed as the kernel
+    computes each (the plain version's dz: z with two roundings, the leaky
+    mask; x̂)."""
+    d = nn_layers._leaky_grad(g, y, inv, shift, leaky, 0.1)
+    return [d] if inv is None else [d, d * ((y.float() - m) * rstd)]
+
+
+def compare_bn_train(device, conv0=(64, 416, 416, 32)) -> dict:
+    """The train-mode kernels against their plain versions on the card:
+    each sum within SUM_RTOL of the sum of its terms' magnitudes of a
+    float64 sum of the same f32 terms (the plain version's distance is
+    printed beside it), and dy bit-equal to the plain version given the
+    same sums. Returns {kernel: (largest |kernel - plain|, largest ratio
+    to the bound)}, and checks the wrappers' refusals."""
+    worst = {name: [0.0, 0.0] for name in TRAIN_KERNELS}
+
+    def note(name, got, want, ratio):
+        worst[name][0] = max(worst[name][0],
+                             float((got - want).abs().max()))
+        worst[name][1] = max(worst[name][1], ratio)
+
+    for label, (y, g, scale, bias, mode) in bn_train_cases(
+            device, conv0).items():
+        rows = y.numel() // y.shape[-1]
+        leaky, line = mode != "linear", []
+        inv = m = rstd = None
+        shift = bias
+        if mode == "bn":
+            s1 = bn_channel_sums_cuda(y)
+            p1 = bn_channel_sums_torch(y)
+            r1 = _sums_ratio(s1, y.float())
+            m = s1 / rows
+            s2 = bn_channel_sums_cuda(y, m)
+            p2 = bn_channel_sums_torch(y, m)
+            terms = torch.square(y.float() - m)
+            r2 = _sums_ratio(s2, terms)
+            note("bn_channel_sums", s1, p1, r1)
+            note("bn_channel_sums", s2, p2, r2)
+            line.append(f"sums/bound {r1:.2e}, centred {r2:.2e} (plain "
+                        f"{_sums_ratio(p1, y.float()):.2e}, "
+                        f"{_sums_ratio(p2, terms):.2e})")
+            check(r1 <= 1 and r2 <= 1, f"bn_channel_sums within the bound "
+                                       f"on {label}")
+            del terms
+            rstd = torch.rsqrt(s2 / rows + 1e-5)
+            inv = rstd * scale
+            shift = bias - m * inv
+        sums = epilogue_grad_sums_cuda(g, y, inv, shift, m, rstd, leaky=leaky)
+        plain = epilogue_grad_sums_torch(g, y, inv, shift, m, rstd, leaky, 0.1)
+        terms = grad_terms(g, y, inv, shift, m, rstd, leaky)
+        ratio = max(_sums_ratio(s, t) for s, t in zip(sums, terms))
+        note("epilogue_grad_sums", sums, plain, ratio)
+        line.append(f"grad sums/bound {ratio:.2e} (plain "
+                    f"{max(_sums_ratio(s, t) for s, t in zip(plain, terms)):.2e})")
+        check(ratio <= 1, f"epilogue_grad_sums within the bound on {label}")
+        del terms
+        means = ((None, None) if inv is None
+                 else (sums[0] / rows, sums[1] / rows))
+        dy = epilogue_grad_apply_cuda(g, y, inv, shift, m, rstd, *means,
+                                      leaky=leaky)
+        want = epilogue_grad_apply_torch(g, y, inv, shift, m, rstd, *means,
+                                         leaky, 0.1)
+        torch.cuda.synchronize()
+        equal = bf16_bits_equal(dy, want)
+        note("epilogue_grad_apply", dy.float(), want.float(), 0.0)
+        vec = cuda_bn_train._vec(y.shape[-1], (cuda_epilogue.row_stride(
+            cuda_epilogue._rows(y)), cuda_epilogue.row_stride(
+            cuda_epilogue._rows(g))), y, g)
+        print(f"  bn_train {label}: y {tuple(y.shape)} strides {y.stride()}, "
+              f"g strides {g.stride()}, {vec} a thread; "
+              + "; ".join(line) + f"; dy bits equal {equal}", flush=True)
+        check(equal, f"epilogue_grad_apply == plain on {label}")
+        del dy, want, sums, plain
+    torch.cuda.empty_cache()
+    if device.type == "cuda":  # the plain versions take anything
+        check_bn_train_refusals(device)
+    return {name: tuple(w) for name, w in worst.items()}
+
+
+def check_bn_train_refusals(device) -> None:
+    """The wrappers refuse what the kernels do not take, and the Function's
+    gradient copy takes a column slice as it is."""
+    y = torch.zeros((2, 8, 8, 32), dtype=torch.bfloat16, device=device)
+    v = torch.zeros(32, device=device)
+    nchw = y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    for bad, why in (
+        (lambda: bn_channel_sums_cuda(y.float()), "an f32 y"),
+        (lambda: bn_channel_sums_cuda(y, v[:16]), "a short mean"),
+        (lambda: bn_channel_sums_cuda(y.reshape(-1, 32).t()),
+         "column-major y"),
+        (lambda: epilogue_grad_sums_cuda(y[..., :16], y, None, v, None, None,
+                                         leaky=True), "g of another shape"),
+        (lambda: epilogue_grad_sums_cuda(nchw, y, None, v, None, None,
+                                         leaky=True), "NCHW memory g"),
+        (lambda: epilogue_grad_apply_cuda(y, y, v, v, v, v, None, None,
+                                          leaky=True),
+         "BN mode without the means"),
+    ):
+        try:
+            bad()
+        except ValueError:
+            continue
+        raise RuntimeError(f"chip_smoke: a bn_train wrapper accepted {why}")
+    before = rows_of_grad.copies
+    check(rows_of_grad(nchw).is_contiguous()
+          and rows_of_grad.copies == before + 1
+          and rows_of_grad(y[..., 8:24]).data_ptr() == y[..., 8:24].data_ptr()
+          and rows_of_grad.copies == before + 1,
+          "rows_of_grad copies an NCHW gradient once and takes a column "
+          "slice as it is")
+
+
 def random_weights(cfg, path: str) -> None:
     """Full-width weights from SEED with random BN statistics, written
     through the port's .npz store."""
@@ -753,9 +1019,10 @@ def drive_main_path(cfg, npz: str, device, batch: int) -> dict:
               f"{len(dets)} detections", flush=True)
     check(len(det_lines.getvalue().splitlines())
           == sum(len(r[2]) for r in results), "one line per detection")
+    check(all(got[name] == 0 for name in TRAIN_KERNELS),
+          "serving launches no train-mode kernel")
     return {"launches": launches, "stem_launches": got["stem_fused"],
-            "int8_launches": got["int8_requant"],
-            "epilogue_launches": got["conv_epilogue"],
+            "epilogue_launches": got["conv_epilogue"], "counts": got,
             "out": out, "canvases": canvases, "infer": infer}
 
 
@@ -980,6 +1247,7 @@ def drive_train_path(tmp: str, device, n_images: int, overrides=()) -> dict:
     with log_lines("train") as first:
         run_cli(train_cli, argv + [f"train.steps={TRAIN_STEPS}", *cpu])
     launches = _launches()
+    grad_copies = rows_of_grad.copies
     seconds = time.perf_counter() - t0
     rows = metric_rows(logdir)
     losses = [r for r in rows if "total" in r]
@@ -1013,7 +1281,8 @@ def drive_train_path(tmp: str, device, n_images: int, overrides=()) -> dict:
           f"{[m for m in resumed if m.startswith('resumed')]}, steps "
           f"logged {losses}", flush=True)
     del first
-    return {"launches": launches, "logdir": logdir, "cache_dir": cache_dir,
+    return {"launches": launches, "grad_copies": grad_copies,
+            "logdir": logdir, "cache_dir": cache_dir,
             "image": os.path.join(img_dir, "000000.ppm"),
             "images_per_sec": [r["images_per_sec"] for r in rows
                                if "total" in r],
@@ -1115,6 +1384,143 @@ def check_train_card_vs_cpu(device) -> dict:
     check(aug_err <= AUGMENT_ATOL, "augment apply on the card == CPU")
     return {"loss": loss_err, "grads": grad_err, "params": param_err,
             "bn": bn_err, "augment": aug_err}
+
+
+def plain_bn_epilogue(y, scale, bias, *, leaky, alpha=0.1, eps=1e-5,
+                      group=None):
+    """A BN conv's bf16 train-mode epilogue as the plain ops that ran it
+    before the kernels (``nn/layers.py``'s f32 branch: two f32 passes of
+    ``_batch_moments``, ``batch_norm``, ``leaky_relu``, the cast, all under
+    autograd), for the A/B on one card."""
+    check(group is None, "the plain train epilogue runs on one card here")
+    yf = y.float()
+    m, v = nn_layers._batch_moments(yf)
+    z = batch_norm(yf, scale, bias, m, v, eps=eps)
+    if leaky:
+        z = leaky_relu(z, alpha)
+    return z.to(torch.bfloat16), m.detach(), v.detach()
+
+
+def plain_bias_epilogue(y, b, *, leaky, alpha=0.1):
+    """A bias layer's bf16 train-mode epilogue as the plain ops."""
+    z = y.float() + b.float()
+    if leaky:
+        z = leaky_relu(z, alpha)
+    return z.to(torch.bfloat16)
+
+
+def plain_train_epilogue() -> contextlib.ExitStack:
+    """Inside: a train step runs the plain ops in place of the train-mode
+    Function (``Network.forward`` calls ``nn/train_epilogue.py``'s two
+    functions through the module at each call)."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        train_epilogue, "bn_train_epilogue", plain_bn_epilogue))
+    stack.enter_context(mock.patch.object(
+        train_epilogue, "bias_train_epilogue", plain_bias_epilogue))
+    return stack
+
+
+def train_layers(cfg) -> tuple:
+    """(conv and dense layers, BN convs) of the config's model."""
+    specs = cfg.build_model().specs
+    return (sum(isinstance(s, (ConvSpec, DenseSpec)) for s in specs),
+            sum(isinstance(s, ConvSpec) and s.bn for s in specs))
+
+
+def train_launches(cfg, steps: int, eval_batches: int) -> dict:
+    """The launches of ``steps`` bf16 train steps and an in-training eval of
+    ``eval_batches`` batches with the fused stem: a step's forward two
+    bn_channel_sums a BN conv and a conv_epilogue a layer, its backward an
+    epilogue_grad_sums and an epilogue_grad_apply a layer; an eval batch
+    the NMS and stem kernels once and a conv_epilogue for every layer but
+    conv 0."""
+    n_layers, n_bn = train_layers(cfg)
+    return expect(eval_batches, eval_batches, 0,
+                  n_layers * steps + (n_layers - 1) * eval_batches,
+                  2 * n_bn * steps, n_layers * steps, n_layers * steps)
+
+
+def check_train_kernels_vs_plain(cfg, device) -> dict:
+    """One full-width b64@416 config.ini step (augment, bf16 train-mode
+    forward, loss, backward, momentum update) with the train-mode kernels
+    against the same step with the plain ops (:func:`plain_train_epilogue`),
+    from one state, batch and seed, cuDNN deterministic: every loss term,
+    every gradient and the new BN statistics, within the TRAIN_AB limits.
+    Beside it the floor the f32 order alone gives: the plain step with its
+    BN sums taken in two halves of the batch."""
+    model = cfg.build_model()
+    tx = train_step.make_optimizer(cfg.optimizer)
+    start = train_step.init_train_state(
+        model, tx, torch.Generator().manual_seed(SEED), cfg.model.dim,
+        device)
+    fn = train_step.make_train_step(
+        model, tx, loss_cfg=cfg.loss_config(), aug_cfg=cfg.augment,
+        augment=True, compute_dtype=torch.bfloat16)
+    batch = train_batch(cfg, device)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    for name in ("kernels", "plain", "halves"):
+        ts = copy.deepcopy(start)
+        with contextlib.ExitStack() as stack:
+            if name != "kernels":
+                stack.enter_context(plain_train_epilogue())
+            if name == "halves":
+                stack.enter_context(mock.patch.object(
+                    nn_layers, "_batch_moments", _moments_in_halves))
+            _reset_launches()
+            ts, m = fn(ts, batch, SEED, cfg.model.dim, with_grads=True)
+            launches = _launches()
+        out[name] = {"loss": {k: float(m[k]) for k in
+                              ("coord", "object", "noobject", "class",
+                               "total")},
+                     "grads": {k: v.float().cpu()
+                               for k, v in m["grads"].items()},
+                     "bn": {k: v.cpu() for k, v in ts.net.named_buffers()
+                            if k.endswith((".mean", ".var"))},
+                     "launches": launches}
+        del ts, m
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
+    errs = {}
+    for name in ("kernels", "halves"):
+        got, ref = out[name], out["plain"]
+        diff2 = sum(float((got["grads"][k] - v).double().square().sum())
+                    for k, v in ref["grads"].items())
+        norm2 = sum(float(v.double().square().sum())
+                    for v in ref["grads"].values())
+        errs[name] = {
+            "loss": max(abs(got["loss"][k] - v) / max(abs(v), 1e-30)
+                        for k, v in ref["loss"].items()),
+            "grads": _tree_err(got["grads"], ref["grads"]),
+            "grads_l2": (diff2 / max(norm2, 1e-300)) ** 0.5,
+            "bn": _tree_err(got["bn"], ref["bn"])}
+    n_layers, n_bn = train_layers(cfg)
+    k, f = errs["kernels"], errs["halves"]
+    limit = {q: max(bound, 2 * f[q]) for q, bound in TRAIN_AB_LIMITS.items()}
+    errs["limits"] = limit
+    print(f"  b{batch[0].shape[0]}@{cfg.model.dim} bf16 step, train-mode "
+          f"kernels vs the plain ops (same state, batch, seed; cuDNN "
+          f"deterministic): " + ", ".join(
+              f"{q} {k[q]:.2e} (floor {f[q]:.2e}, limit {limit[q]:.2e})"
+              for q in TRAIN_AB_LIMITS) + " (loss terms relative; gradients' "
+          "largest difference of their max, their difference's norm of "
+          "their norm; BN statistics of their max; the floor: the plain step "
+          "with its BN sums in halves vs the plain step); launches with the "
+          f"kernels {out['kernels']['launches']}, plain "
+          f"{out['plain']['launches']}", flush=True)
+    if device.type == "cuda":  # the counts stay 0 on the CPU
+        check(out["kernels"]["launches"] == expect(
+            0, 0, 0, n_layers, 2 * n_bn, n_layers, n_layers),
+            "the kernels' step: every layer through the train-mode kernels")
+        check(out["plain"]["launches"] == expect(),
+              "the plain step launched no kernel")
+    for q in TRAIN_AB_LIMITS:
+        check(k[q] <= limit[q], f"the kernels' step == the plain step: {q}")
+    del out
+    torch.cuda.empty_cache()
+    return errs
 
 
 def overfit_set(n: int = 8, dim: int = 48):
@@ -1916,6 +2322,273 @@ def time_epilogue_ab(progs: dict, run: dict, card: str) -> dict:
     res["peak_gib"] = {p: {v: b / 2**30 for v, b in d.items()}
                        for p, d in peaks.items()}
     return res
+
+
+def _train_mode(name: str, args: tuple) -> str:
+    """The mode of a train-mode kernel's launch, from its op's arguments."""
+    if name == "bn_channel_sums":
+        return "sum" if args[1] is None else "centred"
+    g, y, inv, shift, m, rstd, *rest = args
+    leaky = rest[-2]
+    return "bn" if inv is not None else ("bias" if leaky else "linear")
+
+
+def train_kernel_cost(name: str, mode, rows: int, c: int) -> tuple:
+    """(bytes, f32 operations) a launch must move and compute: each input
+    read once, each output written once; y is not read by a linear bias
+    layer's backward."""
+    n = rows * c
+    if name == "conv_epilogue":  # mode: (BN scale, leaky)
+        return 4 * n + 4 * c * (2 if mode[0] else 1), EPILOGUE_OPS[mode] * n
+    if name == "bn_channel_sums":
+        return 2 * n + 4 * c * (1 if mode == "sum" else 2), TRAIN_OPS[
+            (name, mode)] * n
+    bn, reads_y = mode == "bn", mode != "linear"
+    vectors = 4 * c * ((4 if name == "epilogue_grad_sums" else 6) if bn
+                       else int(reads_y))
+    if name == "epilogue_grad_sums":
+        nbytes = (2 + 2 * reads_y) * n + vectors + 4 * c * (2 if bn else 1)
+    else:
+        nbytes = (4 + 2 * reads_y) * n + vectors
+    return nbytes, TRAIN_OPS[(name, mode)] * n
+
+
+def check_train_launches(one, label: str) -> tuple:
+    """One train step (``one()``) in which every launch of the train-mode
+    kernels and of conv_epilogue is also run through its plain version on
+    the same inputs, timed by CUDA events: each sum within SUM_RTOL of a
+    float64 sum of its terms, dy and x bit-equal. Returns {kernel: [(mode,
+    y's shape)]}, the plain versions' device ms summed by kernel, the
+    largest sum-to-bound ratio, and each BN conv's (y, g) of the step for
+    the library's timing."""
+    names = TRAIN_KERNELS + ("conv_epilogue",)
+    launches = {name: [] for name in names}
+    bn_inputs = []
+    plain_ms = dict.fromkeys(names, 0.0)
+    worst = [0.0]
+    orig = {name: getattr(kernel_ops, name) for name in names}
+
+    def timed(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        plain_ms[name] += start.elapsed_time(end)
+        return out
+
+    def where(name, y):
+        return (f"{name} launch {len(launches[name])} of {label}: y "
+                f"{tuple(y.shape)} strides {y.stride()}")
+
+    def sums(y, m):
+        got = orig["bn_channel_sums"](y, m)
+        timed("bn_channel_sums", lambda: bn_channel_sums_torch(y, m))
+        ratio = _sums_ratio(got, y.float() if m is None
+                            else torch.square(y.float() - m))
+        worst[0] = max(worst[0], ratio)
+        launches["bn_channel_sums"].append(
+            (_train_mode("bn_channel_sums", (y, m)), tuple(y.shape)))
+        check(ratio <= 1, where("bn_channel_sums", y) + " within the bound")
+        return got
+
+    def grad_sums(*args):
+        got = orig["epilogue_grad_sums"](*args)
+        timed("epilogue_grad_sums", lambda: epilogue_grad_sums_torch(*args))
+        ratio = max(_sums_ratio(s, t) for s, t in zip(
+            got, grad_terms(*args[:6], args[6])))
+        worst[0] = max(worst[0], ratio)
+        launches["epilogue_grad_sums"].append(
+            (_train_mode("epilogue_grad_sums", args), tuple(args[1].shape)))
+        if args[2] is not None:  # a BN conv: its bf16 input and gradient
+            bn_inputs.append((args[1], args[0]))
+        check(ratio <= 1, where("epilogue_grad_sums", args[1])
+              + " within the bound")
+        return got
+
+    def grad_apply(*args):
+        got = orig["epilogue_grad_apply"](*args)
+        want = timed("epilogue_grad_apply",
+                     lambda: epilogue_grad_apply_torch(*args))
+        launches["epilogue_grad_apply"].append(
+            (_train_mode("epilogue_grad_apply", args), tuple(args[1].shape)))
+        check(bf16_bits_equal(got, want), where("epilogue_grad_apply",
+                                                args[1]) + ": dy == plain")
+        return got
+
+    def epilogue(y, b, scale, leaky, alpha):
+        got = orig["conv_epilogue"](y, b, scale, leaky, alpha)
+        want = timed("conv_epilogue", lambda: conv_epilogue_torch(
+            y, b, scale, leaky=leaky, alpha=alpha))
+        launches["conv_epilogue"].append(((scale is not None, leaky),
+                                          tuple(y.shape)))
+        check(bf16_bits_equal(got, want), where("conv_epilogue", y)
+              + ": x == plain")
+        return got
+
+    with contextlib.ExitStack() as stack:
+        for name, fn in (("bn_channel_sums", sums),
+                         ("epilogue_grad_sums", grad_sums),
+                         ("epilogue_grad_apply", grad_apply),
+                         ("conv_epilogue", epilogue)):
+            stack.enter_context(mock.patch.object(kernel_ops, name, fn))
+        _reset_launches()
+        one()
+        counts = _launches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"  {label}: every launch held against its plain version on its "
+          f"own inputs ({', '.join(f'{n} {len(v)}' for n, v in launches.items())}"
+          f"; sums within {worst[0]:.2e} of their bound, dy and x bits "
+          f"equal); launches {counts}, gradients copied to rows "
+          f"{rows_of_grad.copies}", flush=True)
+    return launches, plain_ms, worst[0], bn_inputs
+
+
+def library_bn_ms(bn_inputs: list) -> tuple:
+    """Device ms of the nearest library call, over the step's BN convs:
+    ``aten.native_batch_norm(training=True)`` and its backward on each
+    conv's own bf16 input and gradient (NHWC, so channels_last as (N, C,
+    H, W)), f32 weights (statistics + normalise, no leaky), median of 5
+    each."""
+    fwd = bwd = 0.0
+    for y, g in bn_inputs:
+        x, gout = y.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        c, device = y.shape[-1], y.device
+        weight = torch.ones(c, device=device)
+        bias = torch.zeros(c, device=device)
+        rm, rv = torch.zeros(c, device=device), torch.ones(c, device=device)
+
+        def forward():
+            return torch.ops.aten.native_batch_norm(x, weight, bias, rm, rv,
+                                                    True, 0.01, 1e-5)
+
+        _, mean, invstd = forward()
+        fwd += statistics.median(cuda_ms(forward, 5))
+        bwd += statistics.median(cuda_ms(
+            lambda: torch.ops.aten.native_batch_norm_backward(
+                gout, x, weight, rm, rv, mean, invstd, True, 1e-5,
+                [True, True, True]), 5))
+    return fwd, bwd
+
+
+def time_train_epilogue(cfg, device, card: str) -> dict:
+    """The train-mode kernels in config.ini's b64@416 bf16 step: every
+    launch of one step held against its plain version (and the plain
+    versions' time), each kernel's device ms a step (the profiler's sum over
+    its kernels) against its bound from this step's shapes, the nearest
+    library call's time, and the A/B of the step with the plain ops
+    (:func:`plain_train_epilogue`) and with the kernels in turns (plain,
+    kernels, kernels, plain; median of 5 steps a turn) with each one's peak
+    device memory. Returns {"kernels": {name: {...}}, "ab": {variant: [ms
+    a turn]}, "peak_gib": {variant: GiB}}."""
+    import re
+
+    model = cfg.build_model()
+    tx = train_step.make_optimizer(cfg.optimizer)
+    state = {"ts": train_step.init_train_state(
+        model, tx, torch.Generator().manual_seed(SEED), cfg.model.dim,
+        device)}
+    fn = train_step.make_train_step(
+        model, tx, loss_cfg=cfg.loss_config(), aug_cfg=cfg.augment,
+        augment=True, compute_dtype=torch.bfloat16)
+    batch = train_batch(cfg, device)
+    tag = f"b{batch[0].shape[0]}@{cfg.model.dim}"
+
+    def one():
+        state["ts"], m = fn(state["ts"], batch, SEED, cfg.model.dim)
+        return m
+
+    one()
+    launches, plain_ms, _, bn_inputs = check_train_launches(
+        one, f"the {tag} step")
+    ms = dict.fromkeys(launches, 0.0)
+    for key, us in kernel_device_us(one, 3).items():
+        mt = (re.search(r"channel_sums_kernel<\d+, (\d+)", key)
+              or re.search(r"finalize_kernel<(\d+)>", key))
+        if mt:
+            name = ("bn_channel_sums" if int(mt.group(1)) < 2
+                    else "epilogue_grad_sums")
+        elif "grad_apply_kernel" in key:
+            name = "epilogue_grad_apply"
+        elif "conv_epilogue_kernel" in key:
+            name = "conv_epilogue"
+        else:
+            continue
+        ms[name] += us / 1e3
+    try:
+        lib_fwd, lib_bwd = library_bn_ms(bn_inputs)
+        lib_note = ""
+    except RuntimeError as e:  # reported, not used by the port
+        lib_fwd = lib_bwd = None
+        lib_note = f" (the library call refused these inputs: {e})"
+    n_bn_inputs = len(bn_inputs)
+    del bn_inputs
+    torch.cuda.empty_cache()
+    out = {}
+    for name, items in launches.items():
+        nbytes = ops = 0
+        for mode, shape in items:
+            b, o = train_kernel_cost(name, mode, int(np.prod(shape[:-1])),
+                                     shape[-1])
+            nbytes, ops = nbytes + b, ops + o
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / F32_OPS_PER_S * 1e3
+        out[name] = {"ms": ms[name], "plain_ms": plain_ms[name],
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "bytes": nbytes, "ops": ops}
+        print(f"  [{card}] {name} in the {tag} step: {len(items)} launches, "
+              f"kernel {ms[name]:.3f} ms on the device a step "
+              f"({out[name]['bound_ms'] / max(ms[name], 1e-9):.0%} of its "
+              f"bound), bound {out[name]['bound_ms']:.3f} ms "
+              f"({out[name]['bound_by']}: {nbytes} B, {ops} f32 ops), plain "
+              f"version {plain_ms[name]:.3f} ms on the same inputs",
+              flush=True)
+    out["bn_channel_sums"]["library_ms"] = lib_fwd
+    out["epilogue_grad_sums"]["library_ms"] = lib_bwd
+    out["epilogue_grad_apply"]["library_ms"] = None
+    fwd = [out[n] for n in ("bn_channel_sums", "conv_epilogue")]
+    bwd = [out[n] for n in ("epilogue_grad_sums", "epilogue_grad_apply")]
+    print(f"  [{card}] the {tag} step's train-mode epilogue: forward "
+          f"{sum(o['ms'] for o in fwd):.3f} ms (bound "
+          f"{sum(o['bound_ms'] for o in fwd):.3f}), backward "
+          f"{sum(o['ms'] for o in bwd):.3f} ms (bound "
+          f"{sum(o['bound_ms'] for o in bwd):.3f}); the plain versions "
+          f"{sum(o['plain_ms'] for o in fwd + bwd):.3f} ms; nearest library "
+          f"call, aten.native_batch_norm(training=True) over the "
+          f"{n_bn_inputs} BN convs' own inputs (statistics + normalise, no "
+          f"leaky): "
+          f"forward {lib_fwd} ms, backward {lib_bwd} ms{lib_note}",
+          flush=True)
+    ab = {"plain": [], "kernels": []}
+    peak = dict.fromkeys(ab, 0)
+    for variant in ("plain", "kernels", "kernels", "plain"):
+        with (plain_train_epilogue() if variant == "plain"
+              else contextlib.nullcontext()):
+            ab[variant].append(statistics.median(cuda_ms(one, 5)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            one()
+            torch.cuda.synchronize()
+            peak[variant] = max(peak[variant],
+                                torch.cuda.max_memory_allocated())
+    n = batch[0].shape[0]
+    print(f"  [{card}] A/B {tag} bf16 train step, plain ops vs train-mode "
+          f"kernels, ms in turns (plain, kernels, kernels, plain): "
+          f"{ab['plain'][0]:.3f}, {ab['kernels'][0]:.3f}, "
+          f"{ab['kernels'][1]:.3f}, {ab['plain'][1]:.3f} (means "
+          f"{statistics.mean(ab['plain']):.3f} vs "
+          f"{statistics.mean(ab['kernels']):.3f}: "
+          f"{n / statistics.mean(ab['plain']) * 1e3:.1f} vs "
+          f"{n / statistics.mean(ab['kernels']) * 1e3:.1f} img/s); peak "
+          f"device memory of a step plain {peak['plain'] / 2**30:.2f} GiB, "
+          f"kernels {peak['kernels'] / 2**30:.2f} GiB", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return {"kernels": out, "ab": ab,
+            "peak_gib": {v: b / 2**30 for v, b in peak.items()}}
 
 
 def write_ppms(images: list, root: str) -> list:
@@ -2998,10 +3671,9 @@ def check_world_one(tr: dict, tmp: str, device, card: str,
     check(g["launches"]["nms_greedy"] == g["launches"]["stem_fused"]
           == batches, "the world-1 in-training eval: each kernel once a "
                       "batch")
-    fused = conv_count(load_config(["config.ini"], overrides)) - 1
-    check(g["launches"]["conv_epilogue"] == fused * batches,
-          f"the world-1 run: {fused} conv epilogues an eval batch, none in "
-          "its train steps")
+    want = train_launches(load_config(["config.ini"], overrides),
+                          WORLD1_STEPS - 1, batches)
+    check(g["launches"] == want, f"the world-1 run's launches: {want}")
     return g["launches"]
 
 
@@ -3613,6 +4285,7 @@ def main() -> int:
     requant_err = compare_requant(device)
     compare_products(device)
     epilogue_err = compare_epilogue(device)
+    bn_train_err = compare_bn_train(device)
     n_conv = conv_count(cfg)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3650,21 +4323,29 @@ def main() -> int:
         for path, images in (("int8_detect", 1), ("int8_stdin", 3),
                              ("int8_eval", batches)):
             got = i8["launches"][path]
-            check(got == {"nms_greedy": images, "stem_fused": 0,
-                          "int8_requant": n_int8 * images,
-                          "conv_epilogue": 0},
+            check(got == expect(images, 0, n_int8 * images, 0),
                   f"{path}: int8_requant {n_int8} and nms_greedy once a "
                   "batch, no conv epilogue")
 
         tr = drive_train_path(tmp, device, EVAL_IMAGES)
-        check(tr["launches"]["stem_fused"] == tr["launches"]["nms_greedy"]
-              == batches, "the in-training eval launched each kernel once "
-                          "a batch")
-        check(tr["launches"]["conv_epilogue"] == (n_conv - 1) * batches,
-              "the train steps launch no conv epilogue, the in-training "
-              f"eval {n_conv - 1} a batch")
+        n_layers, n_bn = train_layers(cfg)
+        print(f"  cli.train: {TRAIN_STEPS} bf16 steps of {n_layers} conv "
+              f"layers ({n_bn} with BN) and an in-training eval of "
+              f"{batches} batches; expected launches "
+              f"{train_launches(cfg, TRAIN_STEPS, batches)}: a step "
+              f"{n_layers} conv_epilogue, {2 * n_bn} bn_channel_sums (2 a "
+              f"BN conv), {n_layers} epilogue_grad_sums and {n_layers} "
+              f"epilogue_grad_apply (1 a layer); gradients copied to rows "
+              f"{tr['grad_copies']} ({tr['grad_copies'] / TRAIN_STEPS:g} a "
+              f"step)", flush=True)
+        check(tr["launches"] == train_launches(cfg, TRAIN_STEPS, batches),
+              "cli.train: every step's conv and BN epilogues and their "
+              "backward through the train-mode kernels, the in-training "
+              "eval each eval kernel once a batch")
         check_checkpoint_as_weights(tr, device)
         check_train_card_vs_cpu(device)
+        train_ab_err = check_train_kernels_vs_plain(
+            load_config(["config.ini"]), device)
         _, _, om, onet = check_overfit(device)
         check_int8_map(om, onet, tmp, device)
 
@@ -3723,7 +4404,7 @@ def main() -> int:
                  (3, 0, 0, 3 * n_conv)),
                 ("cli.eval --artifact", art_cli["artifact_int8"],
                  (art_batches, 0, n_int8 * art_batches, 0))):
-            check(got == dict(zip(KERNEL_NAMES, want)),
+            check(got == expect(*want),
                   f"{what} launched its kernels inside the program")
 
         cfg_path = check_cfg_specs(tmp)
@@ -3738,7 +4419,7 @@ def main() -> int:
                 ("camera", (CAMERA_FRAMES, 0, 0, n_conv * CAMERA_FRAMES)),
                 ("camera_int8", (CAMERA_FRAMES, 0, n_int8 * CAMERA_FRAMES,
                                  0))):
-            check(tool_launches[path] == dict(zip(KERNEL_NAMES, want)),
+            check(tool_launches[path] == expect(*want),
                   f"{path}: launches {want} (nms, stem, requant, epilogue)")
         drive_host_tools(tr, device)
 
@@ -3749,8 +4430,7 @@ def main() -> int:
             infer_fn, net = progs[fuse]
             got = count_launches(lambda: infer_fn(net, run["canvases"]))
             print(f"  b{BATCH} {fuse} batch launches {got}", flush=True)
-            check(got == {"nms_greedy": 1, "stem_fused": 0,
-                          "int8_requant": n_int8, "conv_epilogue": 0},
+            check(got == expect(1, 0, n_int8, 0),
                   f"{fuse}: one NMS and {n_int8} requant launches a batch")
         fusion_ms = time_fusion(progs, run["canvases"], card)
         epilogue_times = time_conv_epilogue(progs, run["canvases"], card)
@@ -3767,6 +4447,8 @@ def main() -> int:
               f"{len(ips)}: {statistics.median(ips[1:]):.1f})", flush=True)
         train_times = time_train_step(load_config(["config.ini"]), device,
                                       card)
+        train_epi = time_train_epilogue(load_config(["config.ini"]), device,
+                                        card)
         # MFU over the H100 SXM5's dense peaks (utils/flops.py), FLOPs of
         # the unfused model as yolojax counts them
         unfused = cfg.build_model()
@@ -3794,18 +4476,15 @@ def main() -> int:
 
     # launches: the eval path's run (the int8 kernel: the int8 detect run);
     # launches_by_path: each path's own run
-    by_path = {name: {"serving": serving, "eval": ev["launches"][name],
+    by_path = {name: {"serving": run["counts"][name],
+                      "eval": ev["launches"][name],
                       "train": tr["launches"][name],
                       **{p: i8["launches"][p][name] for p in INT8_PATHS},
                       **{p: qat_launches[p][name] for p in QAT_PATHS},
                       **{p: tool_launches[p][name] for p in TOOL_PATHS},
                       **{p: multi["launches"][p][name] for p in MULTI_PATHS},
                       **{p: tf_run[p][name] for p in TF_PATHS}}
-               for name, serving in (("nms_greedy", run["launches"]),
-                                     ("stem_fused", run["stem_launches"]),
-                                     ("int8_requant", run["int8_launches"]),
-                                     ("conv_epilogue",
-                                      run["epilogue_launches"]))}
+               for name in KERNEL_NAMES}
     print(json.dumps({"kernels": [{
         "name": "nms_greedy",
         "route": "cuda",
@@ -3856,7 +4535,43 @@ def main() -> int:
             for p in ("off", "pallas", "b1")},
         "peak_gib_plain_vs_kernel": {
             p: [v["plain"], v["kernel"]] for p, v in ab["peak_gib"].items()},
-    }]}), flush=True)
+        "train_step": {k: train_epi["kernels"]["conv_epilogue"][k]
+                       for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "yolojax_torch/csrc/bn_train.cu",
+        "replaces": replaces,
+        "launches": tr["launches"][name],
+        "launches_by_path": by_path[name],
+        "max_abs_err": bn_train_err[name][0],
+        "max_err_over_tolerance": bn_train_err[name][1],
+        **{k: train_epi["kernels"][name][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library_call": library,
+        **extra,
+    } for name, replaces, library, extra in (
+        ("bn_channel_sums", "XLA fusion of the batch statistics in "
+         "yolojax/nn/layers.py:404-405",
+         "nearest: aten.native_batch_norm(training=True) over the step's BN "
+         "convs (statistics and normalise, no leaky)",
+         {"train_step_ab_ms_plain_vs_kernels": [
+             statistics.mean(train_epi["ab"]["plain"]),
+             statistics.mean(train_epi["ab"]["kernels"])],
+          "train_step_peak_gib_plain_vs_kernels": [
+              train_epi["peak_gib"]["plain"],
+              train_epi["peak_gib"]["kernels"]],
+          "train_step_kernels_vs_plain": train_ab_err["kernels"]}),
+        ("epilogue_grad_sums", "XLA fusion of the train-mode epilogue's VJP "
+         "(yolojax/nn/layers.py:397-420 under jax.grad, "
+         "yolojax/train/step.py:302): the BN scale and bias gradients",
+         "nearest: aten.native_batch_norm_backward over the step's BN convs "
+         "(its sums and dy, no leaky)", {}),
+        ("epilogue_grad_apply", "XLA fusion of the train-mode epilogue's VJP "
+         "(yolojax/nn/layers.py:397-420 under jax.grad, "
+         "yolojax/train/step.py:302): the input gradient",
+         "none apart: native_batch_norm_backward's time is on "
+         "epilogue_grad_sums", {}))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

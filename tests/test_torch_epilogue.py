@@ -297,9 +297,13 @@ def test_export_holds_one_op_per_layer(key):
 
 
 def test_train_mode_and_unfolded_bn():
-    """Train mode never reaches the op (its export holds none, and a train
-    step's forward calls no wrapper); an unfolded eval-mode bf16 forward
-    reaches it with BN's (inv, shift) and equals the former inline code."""
+    """Train mode at bf16 reaches the op through the train-mode Function
+    (``nn/train_epilogue.py``): its export holds one ``conv_epilogue`` node
+    for each conv and two ``bn_channel_sums`` for each BN conv, and a
+    train step's forward calls the wrapper with BN's (inv, shift) of the
+    batch statistics; f32 train mode calls no wrapper; an unfolded
+    eval-mode bf16 forward reaches it with BN's (inv, shift) of the
+    running statistics."""
     _, _, _, tm, net, x = small_pair("v2", fold=False)
     x = torch.from_numpy(x)
 
@@ -314,8 +318,11 @@ def test_train_mode_and_unfolded_bn():
 
     with torch.no_grad():
         program = torch.export.export(Train(), (x,))
-    assert not any("conv_epilogue" in str(n.target)
-                   for n in program.graph.nodes)
+    targets = [str(n.target) for n in program.graph.nodes]
+    bn_convs = [s.bn for s in tm.specs if isinstance(s, ConvSpec)]
+    assert targets.count(OP) == n_epilogues(tm)
+    assert targets.count("yolojax_torch.bn_channel_sums.default") == (
+        2 * sum(bn_convs))
     modes = []
 
     def spy(y, b, scale=None, *, leaky, alpha=ALPHA):
@@ -324,11 +331,12 @@ def test_train_mode_and_unfolded_bn():
 
     with mock.patch.object(cuda_epilogue, "conv_epilogue_cuda", spy):
         tm.apply(net, x, compute_dtype=torch.bfloat16, train=True)
-        assert modes == []
+        assert modes == bn_convs and any(modes)
+        tm.apply(net, x, compute_dtype=torch.float32, train=True)
+        assert modes == bn_convs
         with torch.inference_mode():
             tm.apply(net, x, compute_dtype=torch.bfloat16)
-    bn_convs = [s.bn for s in tm.specs if isinstance(s, ConvSpec)]
-    assert modes == bn_convs and any(modes)
+    assert modes == bn_convs * 2
 
 
 def test_portable_build_has_no_op(tmp_path):

@@ -1,4 +1,4 @@
-"""The port's four hand kernels as PyTorch custom operators.
+"""The port's hand kernels as PyTorch custom operators.
 
 Each kernel is one ``torch.library.custom_op`` in the ``yolojax_torch``
 namespace: its CPU implementation is the kernel's plain version, its CUDA
@@ -9,9 +9,9 @@ but it keeps a custom operator as one node, so an exported serving
 artifact (``yolojax_torch/serve``) carries the kernels themselves: it runs
 them on the card and their plain versions on the CPU, as the live program
 does. The wrappers (``postprocess/cuda_nms.py``, ``nn/cuda_stem.py``,
-``quantize/cuda_int8.py``, ``nn/cuda_epilogue.py``) check their arguments
-and call these operators; the launch counters stay on the wrappers and
-count only real launches.
+``quantize/cuda_int8.py``, ``nn/cuda_epilogue.py``,
+``nn/cuda_bn_train.py``) check their arguments and call these operators;
+the launch counters stay on the wrappers and count only real launches.
 
 Importing this module registers the operators; it loads no CUDA library.
 """
@@ -22,7 +22,13 @@ from typing import Optional
 
 import torch
 
-from yolojax_torch.nn.layers import conv_epilogue_torch
+from yolojax_torch.nn.layers import (
+    _out_dtype,
+    bn_channel_sums_torch,
+    conv_epilogue_torch,
+    epilogue_grad_apply_torch,
+    epilogue_grad_sums_torch,
+)
 from yolojax_torch.nn.stem import stem_fused_torch
 from yolojax_torch.postprocess.nms import nms_greedy_torch
 from yolojax_torch.quantize.int8_ops import int8_requant_torch
@@ -113,4 +119,82 @@ def _conv_epilogue_cuda(y, b, scale, leaky, alpha):
 
 @conv_epilogue.register_fake
 def _conv_epilogue_fake(y, b, scale, leaky, alpha):
-    return y.new_empty(y.shape, dtype=torch.bfloat16)
+    return y.new_empty(y.shape, dtype=_out_dtype(y))
+
+
+# the train-mode epilogue (csrc/bn_train.cu): y bf16 (float64 on the CPU for
+# a gradcheck), f32 per-channel vectors
+
+
+def _sums_dtype(y: torch.Tensor) -> torch.dtype:
+    return torch.float64 if y.dtype == torch.float64 else torch.float32
+
+
+@torch.library.custom_op("yolojax_torch::bn_channel_sums", mutates_args=(),
+                         device_types="cpu")
+def bn_channel_sums(y: torch.Tensor, m: Optional[torch.Tensor]) -> torch.Tensor:
+    """y (..., C) -> (C,) f32: Σy, or Σ(y - m)² given the mean."""
+    return bn_channel_sums_torch(y, m)
+
+
+@bn_channel_sums.register_kernel("cuda")
+def _bn_channel_sums_cuda(y, m):
+    from yolojax_torch.nn.cuda_bn_train import launch_sums
+
+    return launch_sums(y, m)
+
+
+@bn_channel_sums.register_fake
+def _bn_channel_sums_fake(y, m):
+    return y.new_empty((y.shape[-1],), dtype=_sums_dtype(y))
+
+
+@torch.library.custom_op("yolojax_torch::epilogue_grad_sums", mutates_args=(),
+                         device_types="cpu")
+def epilogue_grad_sums(g: torch.Tensor, y: torch.Tensor,
+                       inv: Optional[torch.Tensor], shift: torch.Tensor,
+                       m: Optional[torch.Tensor], rstd: Optional[torch.Tensor],
+                       leaky: bool, alpha: float) -> torch.Tensor:
+    """(Σdz, Σdz·x̂) (2, C) in BN mode, (Σdz,) (1, C) without ``inv``."""
+    return epilogue_grad_sums_torch(g, y, inv, shift, m, rstd, leaky, alpha)
+
+
+@epilogue_grad_sums.register_kernel("cuda")
+def _epilogue_grad_sums_cuda(g, y, inv, shift, m, rstd, leaky, alpha):
+    from yolojax_torch.nn.cuda_bn_train import launch_grad_sums
+
+    return launch_grad_sums(g, y, inv, shift, m, rstd, leaky, alpha)
+
+
+@epilogue_grad_sums.register_fake
+def _epilogue_grad_sums_fake(g, y, inv, shift, m, rstd, leaky, alpha):
+    return y.new_empty((1 if inv is None else 2, y.shape[-1]),
+                       dtype=_sums_dtype(y))
+
+
+@torch.library.custom_op("yolojax_torch::epilogue_grad_apply", mutates_args=(),
+                         device_types="cpu")
+def epilogue_grad_apply(g: torch.Tensor, y: torch.Tensor,
+                        inv: Optional[torch.Tensor], shift: torch.Tensor,
+                        m: Optional[torch.Tensor], rstd: Optional[torch.Tensor],
+                        mdz: Optional[torch.Tensor],
+                        mdzx: Optional[torch.Tensor], leaky: bool,
+                        alpha: float) -> torch.Tensor:
+    """dy (..., C) bf16 of the train-mode epilogue's input."""
+    return epilogue_grad_apply_torch(g, y, inv, shift, m, rstd, mdz, mdzx,
+                                     leaky, alpha)
+
+
+@epilogue_grad_apply.register_kernel("cuda")
+def _epilogue_grad_apply_cuda(g, y, inv, shift, m, rstd, mdz, mdzx, leaky,
+                              alpha):
+    from yolojax_torch.nn.cuda_bn_train import launch_grad_apply
+
+    return launch_grad_apply(g, y, inv, shift, m, rstd, mdz, mdzx, leaky,
+                             alpha)
+
+
+@epilogue_grad_apply.register_fake
+def _epilogue_grad_apply_fake(g, y, inv, shift, m, rstd, mdz, mdzx, leaky,
+                              alpha):
+    return y.new_empty(y.shape, dtype=_out_dtype(y))

@@ -16,7 +16,9 @@ The forward runs in eval mode (running BN statistics, the fused stem of
 :class:`StemLayer`; at bf16 each conv and dense epilogue in one
 :func:`conv_epilogue_torch` pass, the CUDA kernel of
 ``nn/cuda_epilogue.py`` on the card) or in train mode (batch BN
-statistics, dropout); the int8 trunk is ``quantize/ptq.py``.
+statistics, dropout; at bf16 each epilogue and its backward through
+``nn/train_epilogue.py``'s kernels); the int8 trunk is
+``quantize/ptq.py``.
 """
 
 from __future__ import annotations
@@ -157,11 +159,83 @@ def conv_epilogue_torch(y: torch.Tensor, b: torch.Tensor,
     f32 operations and their order are the forward's own, so the result is
     bit-equal to it; yolojax's XLA fuses the same sequence
     (``yolojax/nn/layers.py:395-420``, dense ``:431-440``)."""
-    z = y.float()
+    z = _upcast(y)
     z = z + b if scale is None else z * scale + b
     if leaky:
         z = leaky_relu(z, alpha)
-    return z.to(torch.bfloat16)
+    return z.to(_out_dtype(y))
+
+
+# The train-mode epilogue's plain versions (``csrc/bn_train.cu``): bf16 in,
+# f32 arithmetic, bf16 out, as the kernels compute; a float64 input stays
+# float64 throughout, so a float64 gradcheck can run the same code.
+
+
+def _upcast(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _out_dtype(y: torch.Tensor) -> torch.dtype:
+    return torch.float64 if y.dtype == torch.float64 else torch.bfloat16
+
+
+def _channel_sum(t: torch.Tensor) -> torch.Tensor:
+    return t.sum(dim=tuple(range(t.dim() - 1)))
+
+
+def bn_channel_sums_torch(y: torch.Tensor,
+                          m: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-channel sum over every row of y (..., C): Σy, or, given the
+    mean ``m``, Σ(y - m)² with y - m in f32 (``_batch_moments``' two
+    passes, ``jnp.var``'s order). (C,) f32."""
+    v = _upcast(y)
+    if m is not None:
+        v = torch.square(v - m)
+    return _channel_sum(v)
+
+
+def _leaky_grad(g: torch.Tensor, y: torch.Tensor, inv, shift: torch.Tensor,
+                leaky: bool, alpha: float) -> torch.Tensor:
+    """dz = g * (z >= 0 ? 1 : alpha), z recomputed as the forward computed
+    it (y * inv + shift, or y + shift, two roundings), so the mask sends
+    -0.0 and NaN where the forward's ``torch.where`` did."""
+    d = _upcast(g)
+    if leaky:
+        v = _upcast(y)
+        z = v + shift if inv is None else v * inv + shift
+        d = torch.where(z >= 0, d, alpha * d)
+    return d
+
+
+def epilogue_grad_sums_torch(g: torch.Tensor, y: torch.Tensor, inv,
+                             shift: torch.Tensor, m, rstd, leaky: bool,
+                             alpha: float = 0.1) -> torch.Tensor:
+    """The backward's per-channel sums of the train-mode epilogue: g the
+    gradient of its bf16 output, y its bf16 input. BN mode (``inv``, ``m``
+    and ``rstd`` given): (2, C) f32 = (Σdz, Σdz·x̂), x̂ = (y - m) * rstd.
+    Bias mode (``inv`` None, ``shift`` the bias): (1, C) = (Σdz,)."""
+    d = _leaky_grad(g, y, inv, shift, leaky, alpha)
+    if inv is None:
+        return _channel_sum(d)[None]
+    xh = (_upcast(y) - m) * rstd
+    return torch.stack([_channel_sum(d), _channel_sum(d * xh)])
+
+
+def epilogue_grad_apply_torch(g: torch.Tensor, y: torch.Tensor, inv,
+                              shift: torch.Tensor, m, rstd, mdz, mdzx,
+                              leaky: bool, alpha: float = 0.1) -> torch.Tensor:
+    """The gradient of the train-mode epilogue's input, row-major bf16 of
+    y's shape: dy = bf16(inv * ((dz - mdz) - x̂ * mdzx)), mdz = Σdz / N and
+    mdzx = Σdz·x̂ / N the global batch's means; in bias mode dy = bf16(dz).
+    The f32 operations and their order are fixed, so the kernel gives the
+    same bits."""
+    d = _leaky_grad(g, y, inv, shift, leaky, alpha)
+    if inv is not None:
+        xh = (_upcast(y) - m) * rstd
+        d = inv * ((d - mdz) - xh * mdzx)
+    # a new tensor even where dy is g itself (float64, linear bias mode)
+    return d.to(_out_dtype(y), memory_format=torch.contiguous_format,
+                copy=True)
 
 
 def max_pool(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
@@ -321,12 +395,20 @@ class Network(nn.Module):
         dense epilogue is one ``yolojax_torch::conv_epilogue`` call
         (``nn/cuda_epilogue.py``: the kernel on the card,
         :func:`conv_epilogue_torch` on the CPU), bit-equal to the plain ops
-        that f32 programs and train mode run."""
+        that f32 programs run. In train mode at bf16 each conv and dense
+        epilogue but a tensor-parallel one is the autograd Function of
+        ``nn/train_epilogue.py`` (the batch statistics, ``conv_epilogue``
+        and the backward as kernels on the card, their plain versions on
+        the CPU); its forward is bit-equal to the plain ops on the CPU.
+        f32 train mode and tensor-parallel layers run the plain ops."""
         dp = mesh is not None and mesh.data > 1
         tp = mesh is not None and mesh.model > 1
         one_pass = not train and not tp and compute_dtype == torch.bfloat16
         if one_pass:
             from yolojax_torch.nn.cuda_epilogue import conv_epilogue_cuda
+        kernels_train = train and compute_dtype == torch.bfloat16
+        if kernels_train:
+            from yolojax_torch.nn import train_epilogue
         x = images
         outputs = []
         new_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -363,6 +445,18 @@ class Network(nn.Module):
                     x = conv_epilogue_cuda(y, shift, scale,
                                            leaky=spec.act == "leaky",
                                            alpha=leaky_alpha)
+                elif kernels_train and not tp_layer and spec.bn:
+                    x, m, v = train_epilogue.bn_train_epilogue(
+                        y, layer.scale, layer.bias, leaky=spec.act == "leaky",
+                        alpha=leaky_alpha, eps=bn_eps,
+                        group=mesh.data_group if dp else None)
+                    new_state[_conv_name(i)] = (
+                        layer.mean * bn_momentum + m * (1 - bn_momentum),
+                        layer.var * bn_momentum + v * (1 - bn_momentum))
+                elif kernels_train and not tp_layer:
+                    x = train_epilogue.bias_train_epilogue(
+                        y, layer.b, leaky=spec.act == "leaky",
+                        alpha=leaky_alpha)
                 else:
                     y = y.float()
                     if spec.bn:
@@ -397,12 +491,16 @@ class Network(nn.Module):
                 layer = getattr(self, _dense_name(i))
                 y = F.linear(x.to(compute_dtype), layer.w.to(compute_dtype))
                 b = layer.b
-                if tp and b.shape[0] != spec.out:  # a long bias is split
+                tp_layer = tp and b.shape[0] != spec.out
+                if tp_layer:  # a long bias is split
                     b = gather_from_model(b, mesh)
                 if one_pass:
                     x = conv_epilogue_cuda(y, b.float(),
                                            leaky=spec.act == "leaky",
                                            alpha=leaky_alpha)
+                elif kernels_train and not tp_layer:
+                    x = train_epilogue.bias_train_epilogue(
+                        y, b, leaky=spec.act == "leaky", alpha=leaky_alpha)
                 else:
                     y = y.float() + b.float()
                     if spec.act == "leaky":
