@@ -29,6 +29,7 @@ with one device it warns and serves on that one.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import sys
@@ -52,6 +53,7 @@ from yolojax_torch.nn.stem import fuse_stem
 from yolojax_torch.quantize.ptq import fuse_stem_int8, quantize_model
 from yolojax_torch.utils.cli import make_parser, setup
 from yolojax_torch.utils.device import resolve_device
+from yolojax_torch.utils.profiling import span
 from yolojax_torch.utils.restore import load_weights
 
 log = logging.getLogger("detect")
@@ -158,10 +160,18 @@ def build_detector(cfg, weights_path: str, calib_canvases=None, device=None,
         return names, dim, data_parallel_infer(
             infer_fn, replicate(None if qm is not None else net, qm, devices))
 
+    calls = itertools.count()
+
     def infer(canvases):
-        x = torch.as_tensor(canvases).to(device, torch.float32).contiguous()
-        out = infer_fn(net, x)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        call = next(calls)
+        src = torch.as_tensor(canvases)
+        moved = src.numel() * 4 if src.device.type == "cpu" else 0
+        with span("detect.upload", call, moved):
+            x = src.to(device, torch.float32).contiguous()
+        with span("detect.dispatch", call):
+            out = infer_fn(net, x)
+        with span("detect.readback", call):
+            return {k: v.cpu().numpy() for k, v in out.items()}
 
     return names, dim, infer
 

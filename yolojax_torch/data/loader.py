@@ -30,6 +30,7 @@ import numpy as np
 
 from yolojax_torch.data.augment import letterbox_host
 from yolojax_torch.data.cache import DatasetCache
+from yolojax_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -76,10 +77,12 @@ class Loader:
         return n // b if self.cfg.drop_remainder else (n + b - 1) // b
 
     # -- single example ----------------------------------------------------
-    def _load_example(self, i: int):
-        img = self._decoder(str(self.cache.paths[i]))
-        canvas, tf = letterbox_host(img, self.cfg.canvas_dim,
-                                    stretch=self.cfg.stretch)
+    def _load_example(self, i: int, batch=None):
+        with span("loader.decode", batch):
+            img = self._decoder(str(self.cache.paths[i]))
+        with span("loader.letterbox", batch):
+            canvas, tf = letterbox_host(img, self.cfg.canvas_dim,
+                                        stretch=self.cfg.stretch)
         return (canvas.numpy(), *self._gt_arrays(i, *tf))
 
     def _gt_arrays(self, i: int, sx, sy, px, py):
@@ -101,24 +104,26 @@ class Loader:
             valid[:k] = True
         return out_boxes, out_cls, valid
 
-    def _load_batch(self, idxs):
-        """Build one batch; uses the C++ decode pool when available."""
-        if self._native is None:
-            ex = [self._load_example(int(i)) for i in idxs]
-            return tuple(map(np.stack, zip(*ex)))
-        paths = [str(self.cache.paths[int(i)]) for i in idxs]
-        images, transforms, status = self._native.load_batch(
-            paths, self.cfg.canvas_dim, stretch=self.cfg.stretch)
-        boxes, cls, valid = [], [], []
-        for j, i in enumerate(idxs):
-            if status[j] != 0:  # not a JPEG, or corrupt: decode in Python
-                images[j], b, c, v = self._load_example(int(i))
-            else:
-                b, c, v = self._gt_arrays(int(i), *transforms[j])
-            boxes.append(b)
-            cls.append(c)
-            valid.append(v)
-        return images, np.stack(boxes), np.stack(cls), np.stack(valid)
+    def _load_batch(self, idxs, batch=None):
+        """Build one batch; uses the C++ decode pool when available.
+        ``batch``: its (epoch, index), the id of its spans."""
+        with span("loader.batch", batch, len(idxs)):
+            if self._native is None:
+                ex = [self._load_example(int(i), batch) for i in idxs]
+                return tuple(map(np.stack, zip(*ex)))
+            paths = [str(self.cache.paths[int(i)]) for i in idxs]
+            images, transforms, status = self._native.load_batch(
+                paths, self.cfg.canvas_dim, stretch=self.cfg.stretch)
+            boxes, cls, valid = [], [], []
+            for j, i in enumerate(idxs):
+                if status[j] != 0:  # not a JPEG, or corrupt: decode in Python
+                    images[j], b, c, v = self._load_example(int(i), batch)
+                else:
+                    b, c, v = self._gt_arrays(int(i), *transforms[j])
+                boxes.append(b)
+                cls.append(c)
+                valid.append(v)
+            return images, np.stack(boxes), np.stack(cls), np.stack(valid)
 
     # -- epoch iteration ---------------------------------------------------
     def epoch(self, epoch_idx: int = 0, *, shuffle: bool = True) -> Iterator:
@@ -158,7 +163,8 @@ class Loader:
                 except queue.Empty:
                     return
                 try:
-                    put_or_stop((bi, self._load_batch(idxs)))
+                    put_or_stop((bi, self._load_batch(idxs,
+                                                      (epoch_idx, bi))))
                 except Exception as e:  # surface decode errors, don't hang
                     put_or_stop((bi, e))
 

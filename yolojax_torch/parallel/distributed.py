@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from yolojax_torch.utils.profiling import span
+
 log = logging.getLogger(__name__)
 
 # a collective that waits longer than this fails the run instead of hanging
@@ -144,4 +146,8 @@ def global_batch(local: Sequence, device=None) -> tuple:
     n = {a.shape[0] for a in arrays}
     if len(n) != 1:
         raise ValueError(f"local batch leaves disagree on rows: {sorted(n)}")
-    return tuple(a.to(device) for a in arrays)
+    out = []
+    for a in arrays:
+        with span("train.upload", n=a.numel() * a.element_size()):
+            out.append(a.to(device))
+    return tuple(out)

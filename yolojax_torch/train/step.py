@@ -35,6 +35,7 @@ from yolojax_torch.train.losses import (
     yolo_v1_loss,
     yolo_v2_loss,
 )
+from yolojax_torch.utils.profiling import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -365,15 +366,18 @@ def make_train_step(
             metrics = {k: v.detach() for k, v in terms.items()}
             if plan is None:
                 metrics["grad_norm"] = global_norm(grads)
-                updates, ts.opt_state = tx.update(grads, ts.opt_state,
-                                                  params)
-                for k, p in params.items():
-                    p.add_(updates[k])
+                with span("train.update", ts.step):
+                    updates, ts.opt_state = tx.update(grads, ts.opt_state,
+                                                      params)
+                    for k, p in params.items():
+                        p.add_(updates[k])
             else:
                 grads = plan.reduce_grads(grads)
                 metrics = plan.mean_metrics(metrics)
                 metrics["grad_norm"] = plan.norm(grads)
-                ts.opt_state = plan.update(tx, grads, ts.opt_state, params)
+                with span("train.update", ts.step):
+                    ts.opt_state = plan.update(tx, grads, ts.opt_state,
+                                               params)
             net.load_bn_state(new_bn)
         if with_grads:
             metrics["grads"] = grads
