@@ -68,6 +68,12 @@ TRAIN_SPANS = [
     span("train.upload", 995, 1005, n=1),
     span("train.update", 500, 507, id=0),
     span("train.update", 700, 709, id=1),
+] + [  # the consumer's waits: one ended before the window, one after it
+    span("loader.get", -30, -20, id=(0, 7), n=0),
+    span("loader.get", 0, 300, id=(1, 0), n=0),
+    span("loader.get", 500, 500, id=(1, 1), n=1),
+    span("loader.get", 700, 701, id=(1, 2), n=1),
+    span("loader.get", 999, 1020, id=(1, 3), n=1),
 ]
 
 CASES = [
@@ -83,6 +89,7 @@ CASES = [
     ("train.loader_idle_pct", TRAIN, 100.0 * (1 - 1450 / 8000)),
     ("train.upload_ms", TRAIN, 20.0),      # 8 x 5 ms over 2 steps
     ("train.update_ms", TRAIN, 8.0),       # (7 + 9) / 2 steps
+    ("train.loader_ready_pct", TRAIN, 100.0 * 2 / 3),  # batches (1, 0-2)
 ]
 
 
@@ -117,3 +124,17 @@ def test_reader_without_spans_reads_nothing(monkeypatch, metric, cell,
     run, _ = run_of(cell)
     monkeypatch.delattr(profiling, "spans")
     assert read(run) is None  # a program that records no spans
+
+
+@pytest.mark.parametrize("ready,want", [(1, 100.0), (0, 0.0)],
+                         ids=["all_ready", "none_ready"])
+def test_loader_ready_pct_reads_the_share(monkeypatch, ready, want):
+    run = make_run(TRAIN, 1000, counters={"steps": 8})
+    got = [span("loader.get", 100 * k, 100 * k + 5, id=(2, k), n=ready)
+           for k in range(8)]
+    monkeypatch.setattr(profiling, "spans", lambda: list(got))
+    read = harness.load_reader("train.loader_ready_pct")
+    assert read(run) == pytest.approx(want)
+    monkeypatch.setattr(profiling, "spans", lambda: [
+        s for s in TRAIN_SPANS if s.name != "loader.get"])
+    assert read(run) is None  # a program without the span: the parent's

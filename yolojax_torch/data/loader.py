@@ -2,10 +2,19 @@
 
 Port of ``LoaderConfig`` / ``Loader`` from ``yolojax/data/loader.py``. The
 host reads, decodes and letterboxes each image to a fixed canvas on a
-thread pool with a bounded prefetch queue; batches come out in order. The
-C++ decode pool (``data/native.py``) takes whole batches of JPEGs where its
-library loads, and an image it cannot decode goes through the Python
-decoder alone.
+pool of worker threads, each building whole batches, with a bounded
+prefetch; batches come out in order. The C++ decode pool
+(``data/native.py``) takes whole batches of JPEGs where its library
+loads, and an image it cannot decode goes through the Python decoder
+alone.
+
+A Loader builds its pool at its first epoch and keeps it. Once it has
+been asked for epoch e and then e+1 with the same ``shuffle``, as a
+training loop asks, the pool runs ahead: when an epoch's last batch has
+been dealt to a worker, the workers go straight on to the next epoch's,
+within the same prefetch bound. Any other call drops what was built
+ahead. Each Python worker runs ``letterbox_host`` on an intra-op team of
+its own, of ``WORKER_INTRA_OP_THREADS``.
 
 The Python decoder reads binary 8-bit PPM (P6) files with numpy and hands
 every other format to ``cv2``, so a machine without ``cv2`` (a bare CUDA
@@ -21,18 +30,28 @@ float32 in [0,1], boxes (B, G, 4) normalized xywh on the canvas, classes
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
-import queue
 import threading
-from typing import Iterator
+import weakref
+from typing import Iterator, List, Optional
 
 import numpy as np
+import torch
 
 from yolojax_torch.data.augment import letterbox_host
 from yolojax_torch.data.cache import DatasetCache
 from yolojax_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
+
+# intra-op threads of each Python worker (``torch.set_num_threads`` sets
+# the calling thread's OpenMP team): workers that each lead a team as wide
+# as the machine oversubscribe its cores by the number of workers. Two,
+# not one: ``F.interpolate``'s bilinear kernel gives other bits on one
+# thread than on two or more (about 28% of a 448 canvas's values, by up
+# to 2e-7), and two give the bits of any wider team.
+WORKER_INTRA_OP_THREADS = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +80,7 @@ class Loader:
         self.cfg = cfg
         self._decoder = decode_image
         self._native = None
+        self._pool = None
         if cfg.use_native:
             from yolojax_torch.data.native import NativeDecodePool, available
 
@@ -126,75 +146,239 @@ class Loader:
             return images, np.stack(boxes), np.stack(cls), np.stack(valid)
 
     # -- epoch iteration ---------------------------------------------------
+    def _start(self) -> "_Pool":
+        """The worker pool, built at the first epoch and kept."""
+        if self._pool is None:
+            native = self._native is not None
+            # with the native pool, decode parallelism lives in C++; two
+            # python threads suffice to overlap batch assembly with
+            # consumption
+            workers = max(1, min(2 if native else self.cfg.num_threads,
+                                 len(self)))
+            self._pool = _Pool(
+                weakref.WeakMethod(self._load_batch),
+                functools.partial(epoch_batches, len(self.cache), self.cfg),
+                workers, max(self.cfg.prefetch, 0) + workers,
+                None if native else WORKER_INTRA_OP_THREADS)
+            self._finalize = weakref.finalize(self, self._pool.close)
+        return self._pool
+
+    def close(self) -> None:
+        """Stop the worker threads and wait for them to end; dropping the
+        Loader stops them too. A later epoch builds a new pool."""
+        if self._pool is not None:
+            self._finalize()
+            self._pool.join()
+            self._pool = None
+
     def epoch(self, epoch_idx: int = 0, *, shuffle: bool = True) -> Iterator:
         """Yield batches for one epoch. Deterministic given (seed, epoch)."""
-        order = np.arange(len(self.cache))
-        if shuffle:
-            # identical seed on every process -> consistent disjoint shards
-            rng = np.random.RandomState((self.cfg.seed, epoch_idx))
-            rng.shuffle(order)
-        if self.cfg.shard_count > 1:
-            order = order[self.cfg.shard_index :: self.cfg.shard_count]
-        n = len(order)
-        b = self.cfg.batch_size
-        limit = (n // b) * b if self.cfg.drop_remainder else n
-
-        work_q: "queue.Queue" = queue.Queue()
-        out_q: "queue.Queue" = queue.Queue(maxsize=self.cfg.prefetch)
-        batches = [order[s : s + b] for s in range(0, limit, b)]
-        for bi, idxs in enumerate(batches):
-            work_q.put((bi, idxs))
-        stop = threading.Event()
-
-        def put_or_stop(item):
-            # out_q is bounded: re-check stop while waiting, so a consumer
-            # that abandons the generator mid-epoch leaks no thread
-            while not stop.is_set():
-                try:
-                    out_q.put(item, timeout=0.1)
-                    return
-                except queue.Full:
-                    continue
-
-        def worker():
-            while not stop.is_set():
-                try:
-                    bi, idxs = work_q.get_nowait()
-                except queue.Empty:
-                    return
-                try:
-                    put_or_stop((bi, self._load_batch(idxs,
-                                                      (epoch_idx, bi))))
-                except Exception as e:  # surface decode errors, don't hang
-                    put_or_stop((bi, e))
-
-        # with the native pool, decode parallelism lives in C++; two python
-        # threads suffice to overlap batch assembly with consumption
-        n_py_threads = 2 if self._native is not None else self.cfg.num_threads
-        threads = [
-            threading.Thread(target=worker, daemon=True)
-            for _ in range(min(n_py_threads, max(len(batches), 1)))
-        ]
-        for t in threads:
-            t.start()
+        n = len(self)
+        if not n:
+            return
+        pool = self._start()
+        run = pool.request(epoch_idx, shuffle)
+        done = False
         try:
-            # batches may complete out of order across threads
-            next_bi = 0
-            pending = {}
-            for _ in range(len(batches)):
-                bi, payload = out_q.get()
-                pending[bi] = payload
-                while next_bi in pending:
-                    p = pending.pop(next_bi)
-                    if isinstance(p, Exception):
-                        raise p
-                    yield p
-                    next_bi += 1
+            for bi in range(n):
+                run, p = pool.take(run, epoch_idx, shuffle, bi, bi == n - 1)
+                if isinstance(p, Exception):
+                    raise p
+                done = bi == n - 1
+                yield p
         finally:
-            stop.set()
+            if not done:  # left mid-epoch: build no more of it
+                pool.cancel(run)
 
     def __iter__(self):
         return self.epoch(0)
+
+
+def epoch_batches(n: int, cfg: LoaderConfig, epoch_idx: int,
+                  shuffle: bool) -> List[np.ndarray]:
+    """The cache indices of each batch of one epoch of ``n`` images, in
+    order: deterministic given (seed, epoch)."""
+    order = np.arange(n)
+    if shuffle:
+        # identical seed on every process -> consistent disjoint shards
+        rng = np.random.RandomState((cfg.seed, epoch_idx))
+        rng.shuffle(order)
+    if cfg.shard_count > 1:
+        order = order[cfg.shard_index :: cfg.shard_count]
+    b = cfg.batch_size
+    limit = (len(order) // b) * b if cfg.drop_remainder else len(order)
+    return [order[s : s + b] for s in range(0, limit, b)]
+
+
+class _Pool:
+    """A Loader's worker threads and the batches they build. Jobs are dealt
+    in order from one stream, each a whole batch to one worker; at most
+    ``slots`` are dealt and not yet taken (built, or in a worker's hands),
+    and the consumer takes them in order. A stream serves one epoch, or,
+    once a caller has asked for consecutive epochs, runs on into the next
+    epoch as soon as the last batch of one is dealt. A new stream drops
+    what the old one built; its jobs still in a worker's hands are dropped
+    when they end."""
+
+    def __init__(self, build, batches, workers: int, slots: int,
+                 intra_op: Optional[int]):
+        self._build = build      # weak method: (idxs, (epoch, bi)) -> batch
+        self._batches = batches  # (epoch, shuffle) -> index arrays
+        self._slots = slots
+        # one lock, two waits: a freed slot wakes one worker, a built
+        # batch wakes the consumer (re-entrant: the garbage collector may
+        # close the pool on a thread that holds it)
+        self._lock = threading.RLock()
+        self._can_deal = threading.Condition(self._lock)
+        self._built = threading.Condition(self._lock)
+        self._jobs = None        # the stream's (epoch, bi, idxs) to deal
+        self._ready = {}         # (epoch, bi) -> batch or exception
+        self._held = 0           # dealt and neither taken nor dropped
+        self._run = 0            # serial of the stream
+        self._runs_ahead = False
+        self._ahead = None       # the request the stream is already dealing
+        self._last = None        # (epoch, shuffle) of the last request
+        self._closed = False
+        started = None
+        if intra_op:
+            # the count a new thread takes up; set_num_threads also sets
+            # it, so it is given back once every worker has set its own
+            inherited = _in_new_thread(torch.get_num_threads)
+            intra_op = min(inherited, intra_op)
+            started = threading.Barrier(workers + 1)
+        self._threads = [
+            threading.Thread(target=self._work, args=(intra_op, started),
+                             daemon=True, name=f"loader-{k}")
+            for k in range(workers)]
+        for t in self._threads:
+            t.start()
+        if started is not None:
+            started.wait()
+            _in_new_thread(torch.set_num_threads, inherited)
+
+    def _work(self, intra_op: Optional[int], started) -> None:
+        if intra_op:
+            # take up the inherited count first: a thread's first parallel
+            # op takes up the process's count, which is given back below
+            torch.get_num_threads()
+            torch.set_num_threads(intra_op)
+            started.wait()
+        while True:
+            with self._lock:
+                job = self._deal()
+                while job is None:
+                    if self._closed:
+                        return
+                    self._can_deal.wait()
+                    job = self._deal()
+            run, epoch, bi, idxs = job
+            build = self._build()
+            if build is None:  # the Loader is gone
+                return
+            try:
+                payload = build(idxs, (epoch, bi))
+            except Exception as e:  # raised at its batch's yield
+                payload = e
+            del build
+            with self._lock:
+                if run == self._run:
+                    self._ready[(epoch, bi)] = payload
+                    self._built.notify_all()
+                else:
+                    self._held -= 1
+                    self._can_deal.notify()
+
+    def _deal(self):
+        if self._closed or self._jobs is None or self._held >= self._slots:
+            return None
+        job = next(self._jobs, None)
+        if job is None:
+            self._jobs = None
+            return None
+        self._held += 1
+        return (self._run, *job)
+
+    def _stream(self, epoch: int, shuffle: bool, start: int, ahead: bool):
+        while True:
+            batches = self._batches(epoch, shuffle)
+            for bi in range(start, len(batches)):
+                yield epoch, bi, batches[bi]
+            if not (ahead and batches):
+                return
+            epoch, start = epoch + 1, 0
+
+    def _restart(self, epoch: Optional[int], shuffle: bool = True,
+                 start: int = 0, ahead: bool = False) -> None:
+        self._run += 1
+        self._held -= len(self._ready)
+        self._ready.clear()
+        self._runs_ahead, self._ahead = ahead, None
+        self._jobs = (None if epoch is None
+                      else self._stream(epoch, shuffle, start, ahead))
+        self._can_deal.notify_all()
+        self._built.notify_all()
+
+    def request(self, epoch: int, shuffle: bool) -> int:
+        """A consumer starts ``epoch``: keep the stream if it already runs
+        ahead into it, else start one (that runs ahead when the last
+        request was the epoch before, with the same ``shuffle``). Returns
+        the stream's serial."""
+        with self._lock:
+            if self._ahead != (epoch, shuffle):
+                self._restart(epoch, shuffle,
+                              ahead=self._last == (epoch - 1, shuffle))
+            self._last, self._ahead = (epoch, shuffle), None
+            return self._run
+
+    def take(self, run: int, epoch: int, shuffle: bool, bi: int,
+             last: bool):
+        """Batch ``bi`` of ``epoch`` (a batch or the exception its build
+        raised) for the consumer of stream ``run``, waiting until it is
+        built. A consumer whose stream another replaced deals the rest of
+        its epoch afresh. Returns (the stream's serial, the batch)."""
+        key = (epoch, bi)
+        with self._lock:
+            if run != self._run:
+                self._restart(epoch, shuffle, bi)
+                run = self._run
+            with span("loader.get", key, int(key in self._ready)):
+                while key not in self._ready:
+                    if self._closed:
+                        raise RuntimeError("the loader was closed")
+                    self._built.wait()
+            payload = self._ready.pop(key)
+            self._held -= 1
+            if last and self._runs_ahead:
+                self._ahead = (epoch + 1, shuffle)
+            self._can_deal.notify()
+            return run, payload
+
+    def cancel(self, run: int) -> None:
+        """The consumer of stream ``run`` left mid-epoch."""
+        with self._lock:
+            if run == self._run:
+                self._restart(None)
+
+    def close(self) -> None:
+        """Deal nothing more; each worker ends once its batch is built.
+        Waits for none: the garbage collector may call it on a worker."""
+        with self._lock:
+            self._closed = True
+            self._restart(None)
+
+    def join(self) -> None:
+        for t in self._threads:
+            t.join()
+
+
+def _in_new_thread(fn, *args):
+    """``fn(*args)`` on a thread of its own (one that has not yet taken up
+    an intra-op thread count)."""
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn(*args)))
+    t.start()
+    t.join()
+    return out[0]
 
 
 def read_ppm(path: str) -> np.ndarray:
