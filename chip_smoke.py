@@ -101,6 +101,15 @@ Phases, each of which raises on failure:
    writes nothing; where it does, the exported SavedModel's keep mask
    equals the live portable program's on the card.
 
+13. YOLOv3 at 608 (``models/yolo3.py``, random weights) through
+   ``build_detector``: one b128 batch whose 23 residual and 52 plain
+   conv-epilogue launches are each held against the plain version on
+   their own inputs, bits equal, the launches counted, the batch timed
+   and its device operations listed. The residual kernel is also held
+   against its plain version at the 23 residual convs' b128@608 shapes
+   in phase 3. ``python3 chip_smoke.py --only yolo3`` runs the build, the
+   conv-epilogue checks and this phase alone.
+
 The line before the last is one JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero before printing either.
@@ -108,6 +117,7 @@ script exits non-zero before printing either.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import io
@@ -173,7 +183,10 @@ from yolojax_torch.nn.cuda_bn_train import (
     epilogue_grad_sums_cuda,
     rows_of_grad,
 )
-from yolojax_torch.nn.cuda_epilogue import conv_epilogue_cuda
+from yolojax_torch.nn.cuda_epilogue import (
+    conv_epilogue_cuda,
+    conv_epilogue_residual_cuda,
+)
 from yolojax_torch.nn.cuda_stem import stem_fused_cuda
 from yolojax_torch.nn.layers import (
     ConvSpec,
@@ -190,6 +203,7 @@ from yolojax_torch.nn.layers import (
     epilogue_grad_sums_torch,
     leaky_relu,
     max_pool,
+    residual_convs,
 )
 from yolojax_torch.nn.stem import (
     fuse_stem,
@@ -369,6 +383,10 @@ MULTI_PATHS = ("world1_train", "dist_eval", "dp_detect", "dp_serve")
 MULTI_EVAL_IMAGES = 32
 # phase 12: TF export. The portable builds, whose spec the TF formats bake
 TF_PATHS = ("tf_export",)
+# phase 13: YOLOv3 at 608 (models/yolo3.py) through the serving path, b128
+YOLO3_INI = ["model.model=yolo3", "model.dim=608", "model.num_classes=80",
+             "detect.fuse_stem=off", "detect.threshold=0.005",
+             "detect.nms_iou=0.45"]
 
 
 def check(cond: bool, what: str) -> None:
@@ -4267,7 +4285,166 @@ def drive_tf_export(npz: str, canvases: torch.Tensor, tmp: str, device,
     return {"tf_export": launches}
 
 
-def main() -> int:
+def residual_cases(device) -> dict:
+    """conv_epilogue_residual inputs (y, b, scale, r, leaky) on ``device``:
+    the 23 residual convs of YOLOv3 at b128@608 (bias mode, leaky, as the
+    folded serving program runs them), BN mode, a linear layer, C = 125
+    (one channel a thread) and an unaligned column slice of y."""
+    rng = np.random.RandomState(SEED + 17)
+    model = get_model("yolo3", "darknet", 80)
+    shapes = nn_layers.weight_shapes(model.specs, 3, (608, 608))
+
+    def vec(c, lo=None, hi=None):
+        v = (rng.uniform(lo, hi, c) if lo is not None
+             else rng.normal(0, 0.5, c))
+        return torch.from_numpy(v.astype(np.float32)).to(device)
+
+    def ys(*shape):
+        g = torch.Generator(device).manual_seed(int(rng.randint(1 << 30)))
+        return (torch.randn(shape, generator=g, device=device) * 2).to(
+            torch.bfloat16)
+
+    cases = {}
+    h = 608
+    sizes = {}
+    for i, spec in enumerate(model.specs):  # each conv's output grid
+        if isinstance(spec, ConvSpec):
+            h = (h + 2 * (spec.ksize // 2) - spec.ksize) // spec.stride + 1
+            sizes[i] = h
+        if isinstance(spec, RouteSpec):
+            break
+    for i in sorted(residual_convs(model.specs)):
+        c, g = shapes[f"conv_{i}"][0], sizes[i]
+        cases[f"conv {i} bias leaky ({BATCH}, {g}, {g}, {c})"] = (
+            ys(BATCH, g, g, c), vec(c), None, ys(BATCH, g, g, c), True)
+    scale, b = bn_affine(vec(256, 0.5, 1.5), vec(256), vec(256) * 0.2,
+                         vec(256, 0.5, 1.5))
+    cases["C256 BN leaky"] = (ys(8, 76, 76, 256), b, scale,
+                              ys(8, 76, 76, 256), True)
+    cases["C512 bias linear"] = (ys(8, 38, 38, 512), vec(512), None,
+                                 ys(8, 38, 38, 512), False)
+    cases["C125 bias leaky"] = (ys(16, 13, 13, 125), vec(125), None,
+                                ys(16, 13, 13, 125), True)
+    wide = ys(4099, 264)
+    cases["unaligned column slice (ld 264, offset 3)"] = (
+        wide[:, 3:259], vec(256), None, ys(4099, 256), True)
+    return cases
+
+
+def compare_residual_epilogue(device) -> None:
+    """The residual conv-epilogue kernel against its plain version on the
+    card, bf16 bits equal (NaN by NaN-ness), and its refusals."""
+    for label, (y, b, scale, r, leaky) in residual_cases(device).items():
+        got = conv_epilogue_residual_cuda(y, b, scale, r, leaky=leaky)
+        want = conv_epilogue_torch(y, b, scale, r, leaky=leaky)
+        torch.cuda.synchronize()
+        equal = bf16_bits_equal(got, want)
+        print(f"  conv_epilogue_residual {label}: y {tuple(y.shape)}, "
+              f"{'8' if vector_path(y, b, scale) else '1'} a thread; bits "
+              f"equal {equal}", flush=True)
+        check(equal, f"conv_epilogue_residual == plain on {label}")
+        del got, want
+    torch.cuda.empty_cache()
+    y = torch.zeros((2, 8, 8, 32), dtype=torch.bfloat16, device=device)
+    b = torch.zeros(32, device=device)
+    for r, why in ((y.float(), "an f32 r"), (y[:1], "a short r"),
+                   (y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                    "an NCHW r")):
+        try:
+            conv_epilogue_residual_cuda(y, b, None, r, leaky=True)
+        except ValueError:
+            continue
+        raise RuntimeError(f"chip_smoke: the residual wrapper accepted {why}")
+
+
+def check_yolo3_serving(device, card: str) -> dict:
+    """YOLOv3 at 608 with random weights through ``build_detector`` as a
+    user serves it: one b128 batch of canvases whose every conv-epilogue
+    launch, residual or not, is held against the plain version on its own
+    inputs (bits equal), the launches counted (23 residual epilogues, 52
+    plain ones and one NMS a batch), then the batch's device time by CUDA
+    events and its kernels by the profiler."""
+    cfg = load_config([], YOLO3_INI)
+    model = cfg.build_model()
+    n_res = len(residual_convs(model.specs))
+    n_conv = sum(isinstance(s, ConvSpec) for s in model.specs)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "yolo3.npz")
+        random_weights(cfg, npz)
+        _, dim, infer = build_detector(cfg, npz, device=device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    canvases = torch.rand((BATCH, dim, dim, 3), device=device, generator=gen)
+    infer(canvases)  # warm-up: cuDNN plans, decode constants
+    op = kernel_ops.conv_epilogue
+    held = {"plain": 0, "residual": 0}
+
+    def checked(y, b, scale, leaky, alpha, r=None):
+        got = op(y, b, scale, leaky, alpha, r)
+        want = conv_epilogue_torch(y, b, scale, r, leaky=leaky, alpha=alpha)
+        held["plain" if r is None else "residual"] += 1
+        check(bf16_bits_equal(got, want),
+              f"yolo3 conv_epilogue{'' if r is None else '_residual'} == "
+              f"plain on y {tuple(y.shape)}")
+        return got
+
+    _reset_launches()
+    conv_epilogue_residual_cuda.launches = 0
+    with mock.patch.object(kernel_ops, "conv_epilogue", checked):
+        out = infer(canvases)
+    got = _launches()
+    res = conv_epilogue_residual_cuda.launches
+    print(f"phase yolo3 serving path: b{BATCH}@{dim} one batch: launches "
+          f"{got}, conv_epilogue_residual {res}; held against the plain "
+          f"version, bits equal: {held}", flush=True)
+    check(res == n_res == 23, "yolo3: 23 residual epilogues a batch")
+    check(got["conv_epilogue"] == n_conv - n_res == 52,
+          "yolo3: 52 plain conv epilogues a batch")
+    check(got["nms_greedy"] == 1 and got["stem_fused"] == 0,
+          "yolo3: one NMS launch, no stem")
+    check(held == {"plain": 52, "residual": 23},
+          "yolo3: every epilogue launch held against its plain version")
+    check(all(v.shape[:2] == (BATCH, 256) for v in out.values()),
+          "yolo3: fixed-shape outputs")
+    x = canvases.cpu().numpy()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        infer(canvases)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  [{card}] yolo3 b{BATCH}@{dim} resident batch: "
+          f"{', '.join(f'{v:.2f}' for v in ms)} ms; peak {peak:.2f} GiB",
+          flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        infer(x)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t = by_name.setdefault(e.name(), [0, 0.0])
+            t[0] += 1
+            t[1] += (e.end_ns() - e.start_ns()) / 1e6
+    print(f"  [{card}] yolo3 b{BATCH}@{dim} one host batch's device "
+          "operations (launches, ms, name):", flush=True)
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"    {n:5d} {t:9.3f}  {name[:150]}", flush=True)
+    return {"residual_launches": res, "ms": ms, "peak_gib": peak}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=("yolo3",), default=None,
+                        help="yolo3: the build, the conv-epilogue checks "
+                             "and phase 13 alone")
+    args = parser.parse_args(argv)
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
     device = torch.device("cuda", 0)
@@ -4276,6 +4453,15 @@ def main() -> int:
     t0 = time.perf_counter()
     build_kernels()
     print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only == "yolo3":
+        print("phase kernels vs plain (conv epilogue):", flush=True)
+        compare_epilogue(device)
+        compare_residual_epilogue(device)
+        check_yolo3_serving(device, card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # the eval floor: every one of the 256 candidates is valid, so the NMS
     # kernel does real work on random weights (serving's 0.3 leaves none)
@@ -4285,6 +4471,7 @@ def main() -> int:
     requant_err = compare_requant(device)
     compare_products(device)
     epilogue_err = compare_epilogue(device)
+    compare_residual_epilogue(device)
     bn_train_err = compare_bn_train(device)
     n_conv = conv_count(cfg)
 
@@ -4473,6 +4660,8 @@ def main() -> int:
 
         multi = drive_multi_device(npz, ev, tr, tmp, device, card)
         tf_run = drive_tf_export(npz, run["canvases"], tmp, device)
+        torch.cuda.empty_cache()
+        check_yolo3_serving(device, card)
 
     # launches: the eval path's run (the int8 kernel: the int8 detect run);
     # launches_by_path: each path's own run

@@ -243,7 +243,7 @@ def test_cfg_models_equal_yolojax(text, registry, tmp_path):
      "activation=leaky\n[region]\n", "padding"),
     ("[net]\n[convolutional]\nfilters=8\nsize=3\npad=1\nactivation=mish\n",
      "activation"),
-    ("[net]\n[shortcut]\nfrom=-3\n", "unknown cfg section"),
+    ("[net]\n[gru]\noutput=64\n", "unknown cfg section"),
     ("[convolutional]\nfilters=8\n", r"\[net\]"),
 ], ids=["local", "no-head", "short-anchors", "padding", "activation",
         "unknown-section", "no-net"])

@@ -43,6 +43,7 @@ from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.data.augment import letterbox_host
 from yolojax_torch.data.loader import decode_image
 from yolojax_torch.eval.evaluator import (
+    check_servable,
     data_parallel_infer,
     local_devices,
     make_infer_fn,
@@ -80,6 +81,8 @@ def build_serving(cfg, weights_path: str, calib_canvases=None, *,
     yolojax)."""
     device = resolve_device(device)
     model = cfg.build_model()
+    check_servable(model, int8=cfg.detect.use_int8,
+                   fuse_stem=cfg.detect.fuse_stem, portable=portable)
     names = cfg.names()
     dim = cfg.model.dim
     net = load_weights(weights_path, model, dim, use_ema=cfg.detect.use_ema)

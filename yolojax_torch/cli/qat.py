@@ -33,6 +33,7 @@ from yolojax_torch.convert.store import save_network_npz
 from yolojax_torch.data.augment import resize
 from yolojax_torch.data.cache import load_cache
 from yolojax_torch.data.grain_loader import make_loader
+from yolojax_torch.models import refuse_v3
 from yolojax_torch.quantize.ptq import calibrate
 from yolojax_torch.quantize.qat import (
     QatConfig,
@@ -58,8 +59,9 @@ def run_qat(cfg, weights: str, output: str, qcfg: QatConfig, *,
     if not 2 <= bits <= 8:
         raise SystemExit(f"--bits must be in [2, 8], got {bits}")
     qmax = 2 ** (bits - 1) - 1
-    device = resolve_device(device)
     model = cfg.build_model()
+    refuse_v3(model, "cli.qat", "there is no YOLOv3 loss or int8 trunk yet")
+    device = resolve_device(device)
     dim = cfg.model.dim
 
     cache = load_cache(cfg.cache.basedir, "train")

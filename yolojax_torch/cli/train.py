@@ -89,6 +89,9 @@ from yolojax_torch.utils.profiling import (
 log = logging.getLogger("train")
 
 def _check_ported(cfg) -> None:
+    if cfg.model.model == "yolo3":
+        raise ValueError("cli.train does not run yolo3: there is no YOLOv3 "
+                         "loss yet (detect, serve and eval run it)")
     if cfg.train.profile_port:
         raise NotImplementedError(
             "train.profile_port: torch has no live profiler server; use "

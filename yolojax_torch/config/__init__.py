@@ -29,11 +29,28 @@ VOC_NAMES = (
     "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
     "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 )
+# COCO's 80 detection categories in Darknet's coco.names order (the same
+# list as config/names/coco.txt): the names() fallback for 80 classes
+COCO_NAMES = (
+    "person", "bicycle", "car", "motorbike", "aeroplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "stop sign",
+    "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella",
+    "handbag", "tie", "suitcase", "frisbee", "skis", "snowboard",
+    "sports ball", "kite", "baseball bat", "baseball glove", "skateboard",
+    "surfboard", "tennis racket", "bottle", "wine glass", "cup", "fork",
+    "knife", "spoon", "bowl", "banana", "apple", "sandwich", "orange",
+    "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair",
+    "sofa", "pottedplant", "bed", "diningtable", "toilet", "tvmonitor",
+    "laptop", "mouse", "remote", "keyboard", "cell phone", "microwave",
+    "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase",
+    "scissors", "teddy bear", "hair drier", "toothbrush",
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    model: str = "yolo2"           # yolo | yolo2
+    model: str = "yolo2"           # yolo | yolo2 | yolo3
     inference: str = "darknet"     # builder name within the model package
     names_file: str = ""           # class-names list path
     num_classes: int = 20          # derived from names_file when present
@@ -150,10 +167,22 @@ class YoloJaxConfig:
     eval: EvalConfig = EvalConfig()
 
     def names(self) -> Tuple[str, ...]:
+        """The class names: ``names_file``'s lines, else VOC's first
+        ``num_classes`` (at most 20) or COCO's 80. Any other count without
+        a names file raises: a silent cut to VOC's 20 would build a model
+        of fewer classes than asked for."""
         if self.model.names_file and os.path.exists(self.model.names_file):
             with open(self.model.names_file) as f:
                 return tuple(l.strip() for l in f if l.strip())
-        return VOC_NAMES[: self.model.num_classes]
+        n = self.model.num_classes
+        if n == len(COCO_NAMES):
+            return COCO_NAMES
+        if n > len(VOC_NAMES):
+            raise ValueError(
+                f"model.num_classes={n} with no names file: the built-in "
+                f"names are VOC's {len(VOC_NAMES)} and COCO's "
+                f"{len(COCO_NAMES)}; set model.names_file")
+        return VOC_NAMES[:n]
 
     def build_model(self):
         from yolojax_torch.models import get_model

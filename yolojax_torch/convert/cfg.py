@@ -2,15 +2,16 @@
 file (port of ``yolojax/convert/cfg.py``).
 
 Supported sections: [net] [convolutional] [maxpool] [route] [reorg]
-[connected] [dropout] [region] (v2 head metadata) [detection] (v1 head
-metadata). [local] / [crop] (early v1 variants) and [softmax] / [cost] are
-refused with a clear error.
+[connected] [dropout] [shortcut] [upsample] [region] (v2 head metadata)
+[detection] (v1 head metadata) [yolo] (a v3 head: a ``YoloSpec`` layer,
+its mask, anchors and classes head metadata). [local] / [crop] (early v1
+variants) and [softmax] / [cost] are refused with a clear error.
 
 Layer indexing: Darknet numbers layers without [net]; [region] and
-[detection] are head metadata, not layers. Each Darknet layer maps to one
-spec, except the first [connected], which inserts a ``FlattenSpec`` before
-it (Darknet flattens implicitly); route targets are remapped to absolute
-spec indices through that shift.
+[detection] are head metadata, not layers; [yolo] is a layer. Each Darknet
+layer maps to one spec, except the first [connected], which inserts a
+``FlattenSpec`` before it (Darknet flattens implicitly); route and shortcut
+targets are remapped to spec indices through that shift.
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from yolojax_torch.nn.layers import (
     MaxPoolSpec,
     ReorgSpec,
     RouteSpec,
+    ShortcutSpec,
+    UpsampleSpec,
+    YoloSpec,
 )
 
 
@@ -65,6 +69,7 @@ def model_from_cfg(path: str):
     head: Optional[Dict[str, str]] = None
     kind = None
     flattened = False
+    masks: List[Tuple[int, ...]] = []
 
     for name, opts in sections[1:]:
         if name == "convolutional":
@@ -112,6 +117,25 @@ def model_from_cfg(path: str):
         elif name == "dropout":
             dk_to_spec.append(len(specs))
             specs.append(DropoutSpec(float(opts.get("probability", 0.5))))
+        elif name == "shortcut":
+            if opts.get("activation", "linear") != "linear":
+                raise ValueError(f"unsupported shortcut activation "
+                                 f"{opts['activation']!r} in {path}")
+            here = len(dk_to_spec)
+            r = int(opts["from"])
+            target = dk_to_spec[r if r >= 0 else here + r]
+            dk_to_spec.append(len(specs))
+            specs.append(ShortcutSpec(target - len(specs)))
+        elif name == "upsample":
+            dk_to_spec.append(len(specs))
+            specs.append(UpsampleSpec(int(opts.get("stride", 2))))
+        elif name == "yolo":  # a v3 head: a layer, plus head metadata
+            if "mask" not in opts:
+                raise ValueError(f"[yolo] without a mask in {path}")
+            dk_to_spec.append(len(specs))
+            specs.append(YoloSpec())
+            head, kind = opts, "v3"
+            masks.append(tuple(int(m) for m in _floats(opts["mask"])))
         elif name == "region":  # v2 head metadata
             head, kind = opts, "v2"
         elif name == "detection":  # v1 head metadata
@@ -123,6 +147,19 @@ def model_from_cfg(path: str):
         else:
             raise ValueError(f"unknown cfg section [{name}] in {path}")
 
+    if kind == "v3":
+        anchors = _floats(head.get("anchors", ""))
+        num = int(head.get("num", len(anchors) // 2))
+        if len(anchors) < 2 * num or num <= max(max(m) for m in masks):
+            raise ValueError(
+                f"[yolo] num={num} with masks {masks} needs {2 * num} "
+                f"anchor values but the anchors line has {len(anchors)} in "
+                f"{path}")
+        pairs = tuple((anchors[2 * i], anchors[2 * i + 1])
+                      for i in range(num))
+        return Model("yolo3", "cfg", "v3", tuple(specs),
+                     int(head.get("classes", 80)), _downsample(specs),
+                     anchors=pairs, masks=tuple(masks))
     if kind == "v2":
         anchors = _floats(head.get("anchors", ""))
         num = int(head.get("num", len(anchors) // 2 or 5))
@@ -141,6 +178,7 @@ def model_from_cfg(path: str):
         num = int(head.get("num", 2))
         return Model("yolo", "cfg", "v1", tuple(specs), classes,
                      dim // side, boxes_per_cell=num, grid=side)
+    # yolojax's words (it has no [yolo]), which the tests hold the port to
     raise ValueError(f"{path}: no [region] or [detection] head section")
 
 

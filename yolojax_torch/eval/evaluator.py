@@ -33,11 +33,15 @@ from yolojax_torch.convert.fold import fold_bn
 from yolojax_torch.data.augment import letterbox_transform
 from yolojax_torch.data.loader import Loader, LoaderConfig
 from yolojax_torch.eval.voc_map import compute_coco_map, compute_map
-from yolojax_torch.models import Model
+from yolojax_torch.models import Model, refuse_v3
 from yolojax_torch.nn.layers import Network, StemLayer
 from yolojax_torch.nn.stem import fuse_stem
 from yolojax_torch.parallel import distributed as dist_util
-from yolojax_torch.postprocess.nms import postprocess_v1, postprocess_v2
+from yolojax_torch.postprocess.nms import (
+    postprocess_v1,
+    postprocess_v2,
+    postprocess_v3,
+)
 from yolojax_torch.quantize.ptq import (
     QuantizedModel,
     apply_int8,
@@ -50,6 +54,22 @@ log = logging.getLogger(__name__)
 # The eval protocol's score floor: low enough to keep the PR tail mAP/AR
 # integrate over.
 EVAL_SCORE_THRESH = 0.005
+
+
+def check_servable(model: Model, *, int8: bool, fuse_stem: str,
+                   portable: bool = False) -> None:
+    """Raise for a serving option that has no path for ``model`` yet, so
+    that nothing falls back to another model's path unseen."""
+    if int8:
+        refuse_v3(model, "detect.use_int8=1", "no int8 trunk for its "
+                  "shortcuts, upsamples and three heads yet")
+    if fuse_stem != "off":
+        refuse_v3(model, f"detect.fuse_stem={fuse_stem}", "it opens with "
+                  "conv 3x3/1 then conv 3x3/2, not the fused stem's conv "
+                  "and 2x2 pool; set detect.fuse_stem=off")
+    if portable:
+        refuse_v3(model, "the TF export (savedmodel, tflite)",
+                  "no TF graph for its shortcuts, upsamples and heads yet")
 
 
 def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
@@ -74,6 +94,12 @@ def make_infer_fn(model: Model, *, score_thresh: float, iou_thresh: float,
             head = apply_int8(qm, images)
         else:
             head = model.apply(net, images, compute_dtype=compute_dtype)
+        if model.kind == "v3":
+            return postprocess_v3(
+                head, model.anchors, model.masks, tuple(images.shape[1:3]),
+                score_thresh=score_thresh, iou_thresh=iou_thresh,
+                top_k=top_k, use_pallas=use_pallas, candidates=candidates,
+            )
         if model.kind == "v2":
             return postprocess_v2(
                 head, model.anchors, score_thresh=score_thresh,
@@ -267,6 +293,7 @@ def _live_program(model, net, cache, device, *, input_dim, batch_size,
     ``net``: canvases (numpy) -> dict of numpy arrays; with
     ``data_parallel`` and more than one local device, replicated on each
     (returns the program and its device count)."""
+    check_servable(model, int8=int8, fuse_stem=fuse_stem_impl)
     device = resolve_device(device)
     if compute_dtype is None:
         compute_dtype = (torch.float32 if device.type == "cpu"

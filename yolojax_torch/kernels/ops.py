@@ -104,21 +104,22 @@ def _int8_requant_fake(acc, m, b, r, qmax, leaky, phases):
                          device_types="cpu")
 def conv_epilogue(y: torch.Tensor, b: torch.Tensor,
                   scale: Optional[torch.Tensor], leaky: bool,
-                  alpha: float) -> torch.Tensor:
+                  alpha: float, r: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """bf16 conv/dense output (..., C) -> f32 + bias (or * scale + bias)
-    -> leaky -> bf16 (..., C)."""
-    return conv_epilogue_torch(y, b, scale, leaky=leaky, alpha=alpha)
+    -> leaky -> bf16 (..., C), plus the residual ``r`` after the cast."""
+    return conv_epilogue_torch(y, b, scale, r, leaky=leaky, alpha=alpha)
 
 
 @conv_epilogue.register_kernel("cuda")
-def _conv_epilogue_cuda(y, b, scale, leaky, alpha):
+def _conv_epilogue_cuda(y, b, scale, leaky, alpha, r=None):
     from yolojax_torch.nn.cuda_epilogue import launch
 
-    return launch(y, b, scale, leaky, alpha)
+    return launch(y, b, scale, leaky, alpha, r)
 
 
 @conv_epilogue.register_fake
-def _conv_epilogue_fake(y, b, scale, leaky, alpha):
+def _conv_epilogue_fake(y, b, scale, leaky, alpha, r=None):
     return y.new_empty(y.shape, dtype=_out_dtype(y))
 
 

@@ -3,6 +3,8 @@
 
 ``get_model("yolo2", "darknet", num_classes=20)`` returns a :class:`Model`
 bundling the spec list with init/apply and head metadata.
+``("yolo3", "darknet")`` is YOLOv3 (``models/yolo3.py``), which has no
+yolojax counterpart.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from yolojax_torch.models import yolo as _yolo
 from yolojax_torch.models import yolo2 as _yolo2
+from yolojax_torch.models import yolo3 as _yolo3
 from yolojax_torch.nn.layers import Network, init_network
 
 _REGISTRY = {
@@ -21,6 +24,7 @@ _REGISTRY = {
     ("yolo", "tiny"): (_yolo.tiny, "v1", _yolo.DOWNSAMPLE),
     ("yolo2", "darknet"): (_yolo2.darknet, "v2", _yolo2.DOWNSAMPLE),
     ("yolo2", "tiny"): (_yolo2.tiny, "v2", _yolo2.DOWNSAMPLE),
+    ("yolo3", "darknet"): (_yolo3.darknet, "v3", _yolo3.DOWNSAMPLE),
 }
 
 
@@ -29,18 +33,22 @@ class Model:
     """A detection model: backbone spec list + head metadata.
 
     v2 heads reshape to (N, H, W, A, 5+C); v1 heads stay flat
-    (N, S*S*(C+5B)) — split with :func:`yolojax_torch.ops.boxes.split_v1_head`.
+    (N, S*S*(C+5B)) — split with :func:`yolojax_torch.ops.boxes.split_v1_head`;
+    v3 gives a tuple of heads, one a ``YoloSpec``, each (N, H, W, A_i, 5+C)
+    with A_i the anchors of its mask.
     """
 
-    name: str          # "yolo" | "yolo2"
+    name: str          # "yolo" | "yolo2" | "yolo3"
     inference: str     # "darknet" | "tiny" | "yolo"
-    kind: str          # "v1" | "v2"
+    kind: str          # "v1" | "v2" | "v3"
     specs: Tuple[Any, ...]
     num_classes: int
     downsample: int
-    anchors: Optional[Tuple[Tuple[float, float], ...]] = None  # v2
+    # v2: grid-cell units; v3: input pixels
+    anchors: Optional[Tuple[Tuple[float, float], ...]] = None
     boxes_per_cell: int = 2                                    # v1
     grid: int = 7                                              # v1 (S)
+    masks: Tuple[Tuple[int, ...], ...] = ()  # v3: each head's anchors
 
     @property
     def num_anchors(self) -> int:
@@ -65,7 +73,18 @@ class Model:
         if self.kind == "v2":
             n, h, w, _ = out.shape
             out = out.reshape(n, h, w, self.num_anchors, 5 + self.num_classes)
+        elif self.kind == "v3":
+            out = tuple(o.reshape(*o.shape[:3], len(m), 5 + self.num_classes)
+                        for o, m in zip(out, self.masks))
         return (out, new_state) if train else out
+
+
+def refuse_v3(model: Model, what: str, missing: str) -> None:
+    """Raise where an entry point or option has no YOLOv3 path yet:
+    ``what`` names it and ``missing`` the part it lacks."""
+    if model.kind == "v3":
+        raise ValueError(f"{what} does not run {model.name} "
+                         f"({model.name}.{model.inference}): {missing}")
 
 
 def get_model(
@@ -84,6 +103,16 @@ def get_model(
             + ", ".join(".".join(k) for k in _REGISTRY)
         )
     builder, kind, downsample = _REGISTRY[key]
+    if kind == "v3":
+        anchors = tuple(tuple(a) for a in (anchors or _yolo3.COCO_ANCHORS))
+        masks = _yolo3.MASKS
+        if len(anchors) != 1 + max(max(m) for m in masks):
+            raise ValueError(
+                f"{name}.{inference} takes {1 + max(max(m) for m in masks)} "
+                f"anchors in pixels (its masks {masks}), got {len(anchors)}")
+        specs = builder(num_classes, len(masks[0]))
+        return Model(name, inference, kind, tuple(specs), num_classes,
+                     downsample, anchors=anchors, masks=masks)
     if kind == "v2":
         if anchors is None:
             anchors = (

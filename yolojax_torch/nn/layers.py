@@ -1,6 +1,7 @@
 """Layer specs and the eval-mode forward pass, in PyTorch.
 
-Port of ``yolojax/nn/layers.py``. A network is still a flat tuple of layer
+Port of ``yolojax/nn/layers.py``, plus YOLOv3's shortcut, upsample and
+yolo-head specs, which yolojax lacks. A network is still a flat tuple of layer
 *specs*; :class:`Network` holds one submodule per conv/dense spec
 (``conv_<i>`` / ``dense_<i>``, the names yolojax's parameter pytrees use)
 and runs the specs in order.
@@ -94,6 +95,28 @@ class DropoutSpec:
     rate: float = 0.5
 
 
+@dataclasses.dataclass(frozen=True)
+class ShortcutSpec:
+    """Residual add of an earlier output (Darknet 'shortcut', linear
+    activation): out = x + outputs[i + from_], ``from_`` relative."""
+
+    from_: int = -3
+
+
+@dataclasses.dataclass(frozen=True)
+class UpsampleSpec:
+    """Nearest-neighbour upsampling by ``stride`` (Darknet 'upsample')."""
+
+    stride: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloSpec:
+    """A detection head's output (Darknet 'yolo'): the identity, whose
+    input :meth:`Network.forward` returns among the heads, in spec order.
+    The head's anchors and mask are the model's metadata."""
+
+
 LayerSpec = Any  # union of the dataclasses above
 
 
@@ -151,19 +174,27 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
 
 
 def conv_epilogue_torch(y: torch.Tensor, b: torch.Tensor,
-                        scale: Optional[torch.Tensor] = None, *,
+                        scale: Optional[torch.Tensor] = None,
+                        r: Optional[torch.Tensor] = None, *,
                         leaky: bool, alpha: float = 0.1) -> torch.Tensor:
     """The eval-mode epilogue of a bf16 conv or dense layer, the plain
     version of ``csrc/conv_epilogue.cu``: y (..., C) bf16 -> f32, + b (the
     folded bias) or * scale + b (BN's ``bn_affine``), leaky, -> bf16. The
     f32 operations and their order are the forward's own, so the result is
     bit-equal to it; yolojax's XLA fuses the same sequence
-    (``yolojax/nn/layers.py:395-420``, dense ``:431-440``)."""
+    (``yolojax/nn/layers.py:395-420``, dense ``:431-440``).
+
+    ``r`` (y's shape, bf16): a residual added after the cast, as a
+    shortcut adds it to the layer's bf16 output: bf16(f32(z) + f32(r)),
+    bit-equal to ``z + r`` in bf16."""
     z = _upcast(y)
     z = z + b if scale is None else z * scale + b
     if leaky:
         z = leaky_relu(z, alpha)
-    return z.to(_out_dtype(y))
+    z = z.to(_out_dtype(y))
+    if r is not None:
+        z = (_upcast(z) + _upcast(r)).to(_out_dtype(y))
+    return z
 
 
 # The train-mode epilogue's plain versions (``csrc/bn_train.cu``): bf16 in,
@@ -250,6 +281,15 @@ def max_pool(x: torch.Tensor, size: int, stride: int) -> torch.Tensor:
                   value=-math.inf)
     y = F.max_pool2d(x.permute(0, 3, 1, 2), size, stride)
     return y.permute(0, 2, 3, 1)
+
+
+def upsample_nearest(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
+    """Darknet 'upsample': (N, H, W, C) -> (N, s*H, s*W, C), each value
+    repeated over an s x s block; one copy, NHWC in and out."""
+    n, h, w, c = x.shape
+    s = stride
+    return x[:, :, None, :, None, :].expand(n, h, s, w, s, c).reshape(
+        n, h * s, w * s, c)
 
 
 def space_to_depth(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
@@ -356,6 +396,7 @@ class Network(nn.Module):
                  layers: Dict[str, nn.Module]):
         super().__init__()
         self.specs = tuple(specs)
+        self.residual = residual_convs(self.specs)
         for name, layer in layers.items():
             self.add_module(name, layer)
 
@@ -368,8 +409,10 @@ class Network(nn.Module):
                 bn_momentum: float = 0.99,
                 mesh=None):
         """images (N, H, W, C) -> f32 output (NHWC, or (N, F) after a
-        dense head). Conv outputs are stored in ``compute_dtype``; the
-        bias/BN + leaky epilogue runs in f32 and is cast back.
+        dense head; a tuple of the ``YoloSpec`` heads' NHWC inputs, in
+        spec order, for a network that has them). Conv outputs are stored
+        in ``compute_dtype``; the bias/BN + leaky epilogue runs in f32 and
+        is cast back.
 
         Eval mode returns the output and leaves the BN buffers alone.
         Train mode returns ``(output, new_bn_state)``: BN normalises with
@@ -400,17 +443,26 @@ class Network(nn.Module):
         ``nn/train_epilogue.py`` (the batch statistics, ``conv_epilogue``
         and the backward as kernels on the card, their plain versions on
         the CPU); its forward is bit-equal to the plain ops on the CPU.
-        f32 train mode and tensor-parallel layers run the plain ops."""
+        f32 train mode and tensor-parallel layers run the plain ops. In the
+        bf16 eval pass a conv that a ``ShortcutSpec`` follows, and that no
+        other spec reads (:func:`residual_convs`), adds the shortcut's
+        operand in its own epilogue (``conv_epilogue_residual_cuda``), bit-
+        equal to the plain add; other paths add in the shortcut."""
         dp = mesh is not None and mesh.data > 1
         tp = mesh is not None and mesh.model > 1
         one_pass = not train and not tp and compute_dtype == torch.bfloat16
+        residual = self.residual if one_pass else {}
         if one_pass:
-            from yolojax_torch.nn.cuda_epilogue import conv_epilogue_cuda
+            from yolojax_torch.nn.cuda_epilogue import (
+                conv_epilogue_cuda,
+                conv_epilogue_residual_cuda,
+            )
         kernels_train = train and compute_dtype == torch.bfloat16
         if kernels_train:
             from yolojax_torch.nn import train_epilogue
         x = images
         outputs = []
+        heads = []
         new_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         for i, spec in enumerate(self.specs):
             tname = type(spec).__name__
@@ -442,9 +494,14 @@ class Network(nn.Module):
                                               layer.mean, layer.var,
                                               eps=bn_eps)
                                     if spec.bn else (None, layer.b.float()))
-                    x = conv_epilogue_cuda(y, shift, scale,
-                                           leaky=spec.act == "leaky",
-                                           alpha=leaky_alpha)
+                    if i in residual:  # the next spec's shortcut, fused
+                        x = conv_epilogue_residual_cuda(
+                            y, shift, scale, outputs[residual[i]],
+                            leaky=spec.act == "leaky", alpha=leaky_alpha)
+                    else:
+                        x = conv_epilogue_cuda(y, shift, scale,
+                                               leaky=spec.act == "leaky",
+                                               alpha=leaky_alpha)
                 elif kernels_train and not tp_layer and spec.bn:
                     x, m, v = train_epilogue.bn_train_epilogue(
                         y, layer.scale, layer.bias, leaky=spec.act == "leaky",
@@ -485,6 +542,13 @@ class Network(nn.Module):
             elif isinstance(spec, RouteSpec):
                 parts = [outputs[r if r >= 0 else i + r] for r in spec.layers]
                 x = torch.cat(parts, dim=-1)
+            elif isinstance(spec, ShortcutSpec):
+                if i - 1 not in residual:  # else its conv's epilogue added
+                    x = x + outputs[i + spec.from_]
+            elif isinstance(spec, UpsampleSpec):
+                x = upsample_nearest(x, spec.stride)
+            elif isinstance(spec, YoloSpec):
+                heads.append(x)
             elif isinstance(spec, FlattenSpec):
                 x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
             elif isinstance(spec, DenseSpec):
@@ -525,9 +589,10 @@ class Network(nn.Module):
             else:
                 raise TypeError(f"unknown layer spec: {spec!r}")
             outputs.append(x)
+        out = tuple(h.float() for h in heads) if heads else x.float()
         if train:
-            return x.float(), new_state
-        return x.float()
+            return out, new_state
+        return out
 
     def load_bn_state(self, new_state: Dict[str, Tuple[torch.Tensor,
                                                        torch.Tensor]]):
@@ -537,6 +602,22 @@ class Network(nn.Module):
                 layer = getattr(self, name)
                 layer.mean.copy_(mean)
                 layer.var.copy_(var)
+
+
+def residual_convs(specs: Sequence[LayerSpec]) -> Dict[int, int]:
+    """{conv index: the output index its shortcut adds} for each conv that
+    a ``ShortcutSpec`` follows and that no route or shortcut reads: its
+    epilogue can add the shortcut's operand, since nothing sees the conv's
+    output before the add."""
+    read = set()
+    for i, spec in enumerate(specs):
+        if isinstance(spec, RouteSpec):
+            read.update(r if r >= 0 else i + r for r in spec.layers)
+        elif isinstance(spec, ShortcutSpec):
+            read.add(i + spec.from_)
+    return {i - 1: i + spec.from_ for i, spec in enumerate(specs)
+            if isinstance(spec, ShortcutSpec) and i > 0
+            and isinstance(specs[i - 1], ConvSpec) and i - 1 not in read}
 
 
 def _shape_walk(specs: Sequence[LayerSpec], in_channels: int,
@@ -577,7 +658,10 @@ def _shape_walk(specs: Sequence[LayerSpec], in_channels: int,
             h = w = 1
         elif isinstance(spec, DenseSpec):
             c = spec.out
-        elif not isinstance(spec, DropoutSpec):
+        elif isinstance(spec, UpsampleSpec):
+            h *= spec.stride
+            w *= spec.stride
+        elif not isinstance(spec, (DropoutSpec, ShortcutSpec, YoloSpec)):
             raise TypeError(f"unknown layer spec: {spec!r}")
         channel_hist.append(c)
         hw_hist.append((h, w))

@@ -9,7 +9,8 @@ for bit.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -93,6 +94,64 @@ def decode_v2(
         "probs": probs,
         "scores": conf[..., None] * probs,
     }
+
+
+# ---------------------------------------------------------------------------
+# YOLOv3 decode (arXiv:1804.02767 §2; Darknet yolo layer)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _v3_constants(device: torch.device, h: int, w: int,
+                  anchors: Tuple[Tuple[float, float], ...],
+                  size: Tuple[int, int]):
+    """(grid (H, W, 1, 2), anchors (A, 2), grid scale (2,), input size
+    (2,)) on ``device``, made once a device and shape: a call after the
+    first enqueues no host-to-device copy, so the decode does not wait for
+    the forward. Made outside inference mode, so that autograd may save
+    them."""
+    with torch.inference_mode(False):
+        cy, cx = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=device),
+            torch.arange(w, dtype=torch.float32, device=device),
+            indexing="ij")
+        grid = torch.stack([cx, cy], dim=-1)[..., None, :]
+        return (grid,
+                torch.tensor(anchors, dtype=torch.float32, device=device),
+                torch.tensor([w, h], dtype=torch.float32, device=device),
+                torch.tensor(size, dtype=torch.float32, device=device))
+
+
+def decode_v3(
+    heads: Sequence[torch.Tensor],
+    anchors: Sequence[Tuple[float, float]],
+    masks: Sequence[Sequence[int]],
+    input_hw: Tuple[int, int],
+) -> List[Dict[str, torch.Tensor]]:
+    """Decode raw v3 heads, each (N, H, W, A, 5+C) with the anchors of its
+    mask (``anchors`` in input pixels), to normalized boxes:
+
+    bx = (sigma(tx) + cx) / W,  by = (sigma(ty) + cy) / H
+    bw = pw * exp(tw) / in_w,   bh = ph * exp(th) / in_h
+    conf = sigma(to),           probs = sigma(tc)  (independent logistics)
+
+    Returns one dict a head with xy, wh, corners, conf, probs and scores
+    = conf * probs, shaped as :func:`decode_v2`'s."""
+    out = []
+    in_h, in_w = input_hw
+    for head, mask in zip(heads, masks):
+        h, w = head.shape[-4], head.shape[-3]
+        grid, anc, scale, size = _v3_constants(
+            head.device, h, w, tuple(tuple(anchors[k]) for k in mask),
+            (in_w, in_h))
+        xy = (torch.sigmoid(head[..., 0:2]) + grid) / scale
+        wh = anc * torch.exp(head[..., 2:4]) / size
+        conf = torch.sigmoid(head[..., 4])
+        probs = torch.sigmoid(head[..., 5:])
+        out.append({"xy": xy, "wh": wh, "corners": xywh_to_corners(xy, wh),
+                    "conf": conf, "probs": probs,
+                    "scores": conf[..., None] * probs})
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from yolojax_torch.ops.boxes import decode_v1, decode_v2, iou_matrix
+from yolojax_torch.ops.boxes import decode_v1, decode_v2, decode_v3, iou_matrix
 
 CLASS_OFFSET = 4.0  # > any normalized box extent
 
@@ -125,6 +125,29 @@ def postprocess_v2(
     m = head.shape[1] * head.shape[2] * head.shape[3]
     corners = dec["corners"].reshape(n, m, 4)
     scores = dec["scores"].reshape(n, m, -1)
+    return _run_nms(corners, scores, score_thresh, iou_thresh, top_k,
+                    use_pallas, candidates)
+
+
+def postprocess_v3(
+    heads: Tuple[torch.Tensor, ...],
+    anchors: Tuple[Tuple[float, float], ...],
+    masks: Tuple[Tuple[int, ...], ...],
+    input_hw: Tuple[int, int],
+    score_thresh: float = 0.3,
+    iou_thresh: float = 0.45,
+    top_k: int = 256,
+    use_pallas: str = "auto",
+    candidates: str = "auto",
+) -> Dict[str, torch.Tensor]:
+    """v3 detect postprocess: raw heads, each (N,H,W,A,5+C), -> detections.
+    The heads' candidates are concatenated in head order (Darknet's layer
+    order: the coarsest grid first), then top-K, shift and NMS as v2."""
+    decs = decode_v3(heads, anchors, masks, input_hw)
+    n = heads[0].shape[0]
+    corners = torch.cat([d["corners"].reshape(n, -1, 4) for d in decs], 1)
+    scores = torch.cat([d["scores"].reshape(n, -1, d["scores"].shape[-1])
+                        for d in decs], 1)
     return _run_nms(corners, scores, score_thresh, iou_thresh, top_k,
                     use_pallas, candidates)
 

@@ -95,7 +95,10 @@ def save_artifact(path: str, infer_fn, net: nn.Module, *, batch: int,
     ``device``, and write the artifact file. Returns the final metadata
     (with the payload size and the platform it runs on)."""
     import yolojax_torch.kernels.ops  # noqa: F401  (the kernels' operators)
+    from yolojax_torch.models import refuse_v3
 
+    refuse_v3(infer_fn.model, "the torch.export artifact",
+              "its multi-head program is not exported yet")
     device = torch.device(device)
     example = torch.full((batch, dim, dim, 3), 0.5, device=device)
     with torch.no_grad():
