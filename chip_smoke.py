@@ -213,12 +213,15 @@ from yolojax_torch.nn.stem import (
     unpack_stem_kernel,
 )
 from yolojax_torch.ops.boxes import iou_matrix
-from yolojax_torch.postprocess import cuda_nms
+from yolojax_torch.postprocess import cuda_nms, cuda_topk
 from yolojax_torch.postprocess.cuda_nms import MAX_K, nms_greedy_cuda
+from yolojax_torch.postprocess.cuda_topk import topk_select_cuda
 from yolojax_torch.postprocess.nms import (
     CLASS_OFFSET,
     nms_greedy_torch,
     postprocess_v2,
+    topk_plan,
+    topk_select_torch,
 )
 from yolojax_torch.quantize import cuda_int8, ptq, qat
 from yolojax_torch.quantize.cuda_int8 import int8_requant_cuda
@@ -255,18 +258,21 @@ KERNELS = (("nms_greedy", cuda_nms.NVCC_FLAGS),
            ("stem_fused", cuda_stem.NVCC_FLAGS),
            ("int8_requant", cuda_int8.NVCC_FLAGS),
            ("conv_epilogue", cuda_epilogue.NVCC_FLAGS),
-           ("bn_train", cuda_bn_train.NVCC_FLAGS))
+           ("bn_train", cuda_bn_train.NVCC_FLAGS),
+           ("topk_select", cuda_topk.NVCC_FLAGS))
 # every kernel's wrapper, whose ``launches`` counts its real launches
 WRAPPERS = (("nms_greedy", nms_greedy_cuda), ("stem_fused", stem_fused_cuda),
             ("int8_requant", int8_requant_cuda),
             ("conv_epilogue", conv_epilogue_cuda),
             ("bn_channel_sums", bn_channel_sums_cuda),
             ("epilogue_grad_sums", epilogue_grad_sums_cuda),
-            ("epilogue_grad_apply", epilogue_grad_apply_cuda))
+            ("epilogue_grad_apply", epilogue_grad_apply_cuda),
+            ("topk_select", topk_select_cuda))
 KERNEL_NAMES = tuple(name for name, _ in WRAPPERS)
 # the train-mode epilogue's kernels (csrc/bn_train.cu), which only a bf16
 # train step launches
-TRAIN_KERNELS = KERNEL_NAMES[4:]
+TRAIN_KERNELS = ("bn_channel_sums", "epilogue_grad_sums",
+                 "epilogue_grad_apply")
 # (N, H, W) inputs of the stem kernel against its plain version: the eval
 # batch, one image, a smaller and a larger (multiscale 608) square, a tiny
 # one, and a ragged one (W/2 = 67 is no multiple of the tile's 32 columns,
@@ -383,6 +389,10 @@ MULTI_PATHS = ("world1_train", "dist_eval", "dp_detect", "dp_serve")
 MULTI_EVAL_IMAGES = 32
 # phase 12: TF export. The portable builds, whose spec the TF formats bake
 TF_PATHS = ("tf_export",)
+# the top-K select (csrc/topk_select.cu) at the main path's (N, M*C, K):
+# YOLOv3-608's b128, v2's b128, eval's b32, the camera's b1, YOLOv1's b128
+TOPK_SHAPES = ((BATCH, 1819440, 256), (BATCH, 16900, 256), (32, 16900, 256),
+               (1, 16900, 256), (BATCH, 1960, 128))
 # phase 13: YOLOv3 at 608 (models/yolo3.py) through the serving path, b128
 YOLO3_INI = ["model.model=yolo3", "model.dim=608", "model.num_classes=80",
              "detect.fuse_stem=off", "detect.threshold=0.005",
@@ -403,9 +413,12 @@ def _reset_launches() -> None:
 
 
 def expect(*counts) -> dict:
-    """The launch counts of KERNEL_NAMES in order, the ones not given 0."""
-    return dict(zip(KERNEL_NAMES, counts + (0,) * (len(KERNEL_NAMES)
-                                                   - len(counts))))
+    """The launch counts of KERNEL_NAMES in order, the ones not given 0,
+    and the top-K select's launch sets, one wherever NMS runs once."""
+    got = dict(zip(KERNEL_NAMES, counts + (0,) * (len(KERNEL_NAMES)
+                                                  - len(counts))))
+    got["topk_select"] = got["nms_greedy"]
+    return got
 
 
 def _launches() -> dict:
@@ -1909,6 +1922,169 @@ def time_nms(shifted, valid, keep, iou_thresh: float, card: str) -> dict:
           f"plain sweep {plain_ms * 1e3:.1f} us, library none", flush=True)
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, **phase_ms}
+
+
+# ---------------------------------------------------------------------------
+# the top-K select
+# ---------------------------------------------------------------------------
+
+
+def detection_scores(n: int, length: int, device, seed: int) -> torch.Tensor:
+    """(n, length) f32 scores shaped as the post-process makes them: a
+    logistic objectness times a logistic class probability."""
+    g = torch.Generator(device).manual_seed(seed)
+    obj = torch.sigmoid(torch.randn((n, length), generator=g, device=device)
+                        * 3 - 2)
+    return obj * torch.sigmoid(torch.randn((n, length), generator=g,
+                                           device=device) * 2)
+
+
+def topk_cases(device) -> dict:
+    """(scores, k) on ``device``: the main path's shapes, then ties, signed
+    zeros, NaN, negatives, a ragged length, an unaligned row start, K 1024
+    (three levels at YOLOv3-608) and fewer scores than 256."""
+    cases = {f"({n}, {length}, {k})": (detection_scores(n, length, device, i),
+                                       k)
+             for i, (n, length, k) in enumerate(TOPK_SHAPES)}
+    g = torch.Generator(device).manual_seed(SEED)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    cases["eight levels (128, 1819440, 256)"] = (
+        (uniform(BATCH, 1819440) * 8).floor() / 8, 256)
+    cases["eight levels (128, 16900, 256)"] = (
+        (uniform(BATCH, 16900) * 8).floor() / 8, 256)
+    cases["all equal (16, 16900, 256)"] = (
+        torch.full((16, 16900), 0.375, device=device), 256)
+    x = uniform(16, 100000) * 0.4
+    x[:, 1000::97] = 0.5  # 1,021 copies of the K-th score: 20 kept
+    x[:, 7:30000:127] = uniform(16, 237) * 0.4 + 0.6
+    cases["ties at the K-th (16, 100000, 256)"] = (x, 256)
+    x = torch.where(uniform(8, 16900) < 0.5, -0.0, 0.0)
+    x[:, ::50] = 0.25
+    cases["-0.0 beside +0.0 (8, 16900, 512)"] = (x, 512)
+    x = uniform(8, 300000)
+    x[:, ::1009] = float("nan")
+    x[:, 5::2003] = float("inf")
+    x[1, :] = float("nan")  # a row of NaN only
+    cases["NaN and inf (8, 300000, 256)"] = (x, 256)
+    cases["negative (8, 16900, 256)"] = (-torch.rand(
+        (8, 16900), generator=g, device=device).log(), 256)
+    cases["ragged (4, 99999, 256)"] = (uniform(4, 99999) * 2 - 1, 256)
+    flat = uniform(4 * 16900 + 1)
+    cases["unaligned rows (4, 16900, 256)"] = (flat[1:].view(4, 16900), 256)
+    cases["K 1024 (8, 1819440, 1024)"] = (
+        detection_scores(8, 1819440, device, 99), 1024)
+    cases["fewer than 256 (8, 150, 150)"] = (uniform(8, 150), 150)
+    return cases
+
+
+def topk_mismatch(got_v, got_i, want_v, want_i) -> dict:
+    """How far the kernel's (values, indices) lie from another's: the
+    largest |difference| where neither value is NaN (equal infinities
+    differ by 0), and the counts of differing indices, of positions where
+    one value is NaN and the other not, and of values with other bits."""
+    nan_got, nan_want = torch.isnan(got_v), torch.isnan(want_v)
+    both = ~(nan_got | nan_want)
+    diff = torch.where(both & (got_v != want_v), (got_v - want_v).abs(),
+                       torch.zeros_like(got_v))
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "index_mismatches": int((got_i != want_i).sum()),
+            "nan_mismatches": int((nan_got != nan_want).sum()),
+            "bit_mismatches": int((got_v.view(torch.int32)
+                                   != want_v.view(torch.int32)).sum())}
+
+
+def compare_topk(device) -> dict:
+    """The top-K kernel against torch.sort(descending, stable)'s first K
+    columns and the plain twin on the card: indices equal, scores equal
+    bit for bit, one launch set a call. Returns the largest mismatch of
+    :func:`topk_mismatch` over every case and both references."""
+    worst = {"max_abs_err": 0.0, "index_mismatches": 0,
+             "nan_mismatches": 0, "bit_mismatches": 0}
+    for label, (x, k) in topk_cases(device).items():
+        before = topk_select_cuda.launches
+        got_v, got_i = topk_select_cuda(x, k)
+        sets = topk_select_cuda.launches - before
+        v, i = torch.sort(x, dim=1, descending=True, stable=True)
+        want_v, want_i = v[:, :k], i[:, :k]
+        del v, i
+        twin_v, twin_i = topk_select_torch(x, k)
+        torch.cuda.synchronize()
+        bits = got_v.view(torch.int32)
+        sort_eq = (torch.equal(got_i, want_i)
+                   and torch.equal(bits, want_v.view(torch.int32)))
+        twin_eq = (torch.equal(got_i, twin_i)
+                   and torch.equal(bits, twin_v.view(torch.int32)))
+        errs = [topk_mismatch(got_v, got_i, want_v, want_i),
+                topk_mismatch(got_v, got_i, twin_v, twin_i)]
+        for err in errs:
+            for key, value in err.items():
+                worst[key] = max(worst[key], value)
+        print(f"  topk_select {label}: plan {topk_plan(x.shape[1], k)}, "
+              f"launch sets {sets}; == torch.sort (stable) {sort_eq} "
+              f"{errs[0]}, == twin {twin_eq} {errs[1]}", flush=True)
+        check(sort_eq, f"topk_select == torch.sort(stable)[:, :K] on {label}")
+        check(twin_eq, f"topk_select == twin on {label}")
+        check(sets == 1, f"topk_select: one launch set on {label}")
+        del got_v, got_i, want_v, want_i, twin_v, twin_i, x
+    torch.cuda.empty_cache()
+    x = torch.zeros((2, 4096), device=device)
+    for bad, why in ((lambda: topk_select_cuda(x, MAX_K + 1), "K > MAX_K"),
+                     (lambda: topk_select_cuda(x.double(), 8), "f64"),
+                     (lambda: topk_select_cuda(x.t(), 2), "a transpose")):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise RuntimeError(f"chip_smoke: the top-K wrapper accepted {why}")
+    print(f"  topk_select, worst over the cases: {worst}", flush=True)
+    return worst
+
+
+def time_topk(card: str) -> dict:
+    """The kernel's device time at the main path's shapes (launch overhead
+    kept out; each level by name from the profiler) beside its bound (one
+    read of the scores, the outputs written once), the plain twin's time
+    and torch.sort(stable)'s, the one call that computes the same."""
+    device = torch.device("cuda", 0)
+    out = {}
+    shapes = [(n, length, k, False) for n, length, k in TOPK_SHAPES]
+    for n, length, k, saturated in shapes + [TOPK_SHAPES[0] + (True,)]:
+        x = detection_scores(n, length, device, SEED)
+        if saturated:  # ties at 1.0, as a random head saturates its scores
+            x[x > 0.1] = 1.0
+
+        def kernel():
+            return topk_select_cuda(x, k)
+
+        def library():
+            v, i = torch.sort(x, dim=1, descending=True, stable=True)
+            return v[:, :k], i[:, :k]
+
+        ms = cuda_ms_queued(kernel, 50)
+        levels = {key: round(us, 2) for key, us in
+                  kernel_device_us(kernel, 20).items() if "topk_select" in key}
+        plain_ms = statistics.median(cuda_ms(
+            lambda: topk_select_torch(x, k), 3))
+        library_ms = statistics.median(cuda_ms(library, 5))
+        nbytes = n * length * 4 + n * k * 12
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shape = f"({n}, {length}, {k}{', saturated' if saturated else ''})"
+        plan = topk_plan(length, k)
+        print(f"  [{card}] topk_select at {shape}: kernel {ms:.4f} ms on the "
+              f"device, bound {bound_ms:.4f} ms (bytes: {nbytes} B, one read "
+              f"of the scores), share {100 * bound_ms / ms:.1f}%; plan "
+              f"{plan}; levels "
+              f"(us a call): {levels}; plain twin {plain_ms:.3f} ms, "
+              f"library torch.sort(stable) {library_ms:.3f} ms", flush=True)
+        out[shape] = {"ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                      "plain_ms": plain_ms, "library_ms": library_ms,
+                      "levels_us": levels}
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4362,7 +4538,7 @@ def check_yolo3_serving(device, card: str) -> dict:
     user serves it: one b128 batch of canvases whose every conv-epilogue
     launch, residual or not, is held against the plain version on its own
     inputs (bits equal), the launches counted (23 residual epilogues, 52
-    plain ones and one NMS a batch), then the batch's device time by CUDA
+    plain ones, one top-K launch set and one NMS a batch), then the batch's device time by CUDA
     events and its kernels by the profiler."""
     cfg = load_config([], YOLO3_INI)
     model = cfg.build_model()
@@ -4401,6 +4577,7 @@ def check_yolo3_serving(device, card: str) -> dict:
           "yolo3: 52 plain conv epilogues a batch")
     check(got["nms_greedy"] == 1 and got["stem_fused"] == 0,
           "yolo3: one NMS launch, no stem")
+    check(got["topk_select"] == 1, "yolo3: one top-K launch set a batch")
     check(held == {"plain": 52, "residual": 23},
           "yolo3: every epilogue launch held against its plain version")
     check(all(v.shape[:2] == (BATCH, 256) for v in out.values()),
@@ -4441,9 +4618,10 @@ def check_yolo3_serving(device, card: str) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=("yolo3",), default=None,
+    parser.add_argument("--only", choices=("yolo3", "topk"), default=None,
                         help="yolo3: the build, the conv-epilogue checks "
-                             "and phase 13 alone")
+                             "and phase 13 alone; topk: the build, the "
+                             "top-K checks and times, and phase 13")
     args = parser.parse_args(argv)
     os.chdir(ROOT)  # config.ini and its names_file are repo-relative
     card = identify()
@@ -4453,6 +4631,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build_kernels()
     print(f"phase build: {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only == "topk":
+        print("phase kernels vs plain (top-K select):", flush=True)
+        compare_topk(device)
+        print(f"phase times [{card}]:", flush=True)
+        time_topk(card)
+        check_yolo3_serving(device, card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "yolo3":
         print("phase kernels vs plain (conv epilogue):", flush=True)
         compare_epilogue(device)
@@ -4473,6 +4661,7 @@ def main(argv=None) -> int:
     epilogue_err = compare_epilogue(device)
     compare_residual_epilogue(device)
     bn_train_err = compare_bn_train(device)
+    topk_err = compare_topk(device)
     n_conv = conv_count(cfg)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4624,6 +4813,7 @@ def main(argv=None) -> int:
         ab = time_epilogue_ab(progs, run, card)
         stem_times = time_stem(progs, run["canvases"], card)
         nms_times = time_nms(shifted, valid, keep, cfg.detect.nms_iou, card)
+        topk_times = time_topk(card)
         requant_times = time_int8_requant(progs, run["canvases"], card)
         time_eval(ev["argv"], EVAL_IMAGES, card)
         time_eval(i8["eval_argv"], EVAL_IMAGES, card,
@@ -4674,6 +4864,9 @@ def main(argv=None) -> int:
                       **{p: multi["launches"][p][name] for p in MULTI_PATHS},
                       **{p: tf_run[p][name] for p in TF_PATHS}}
                for name in KERNEL_NAMES}
+    for path, n in by_path["nms_greedy"].items():
+        check(by_path["topk_select"][path] == n,
+              f"{path}: one top-K launch set wherever NMS runs")
     print(json.dumps({"kernels": [{
         "name": "nms_greedy",
         "route": "cuda",
@@ -4685,6 +4878,17 @@ def main(argv=None) -> int:
         **nms_times,
         "library_ms": None,
         "redesigned": "PR 3",
+    }, {
+        "name": "topk_select",
+        "route": "cuda",
+        "source": "yolojax_torch/csrc/topk_select.cu",
+        "replaces": "torch.sort(stable) in postprocess/nms.py::"
+                    "_select_candidates (yolojax: lax.top_k, no Pallas kernel)",
+        "launches": ev["launches"]["topk_select"],
+        "launches_by_path": by_path["topk_select"],
+        **topk_err,
+        "times": topk_times,
+        "library_call": "torch.sort(descending=True, stable=True)[:, :K]",
     }, {
         "name": "stem_fused",
         "route": "cuda",

@@ -1,5 +1,5 @@
 """The benchmark's YOLOv3 cell (``yolo3-coco-608.detect-v3-b128``): its
-FLOP count, its four per-layer readers on traces made by hand, its files
+FLOP count, its five per-layer readers on traces made by hand, its files
 resolved by name, a run of its driver on the CPU at a tiny size, and its
 judge, whose ``correct`` is false with each detect fault planted in the
 program."""
@@ -14,7 +14,8 @@ from benchmark import counts_v3, harness
 
 CELL = "yolo3-coco-608.detect-v3-b128"
 READERS = ("detect_v3_mfu", "residual_epilogue_roofline",
-           "v3_conv_epilogue_roofline", "detect_v3.select_ms")
+           "v3_conv_epilogue_roofline", "detect_v3.select_ms",
+           "detect.topk_ms")
 T0 = 1_800_000_000_000_000_000  # the window's start, unix ns
 MS = 1_000_000
 
@@ -24,6 +25,8 @@ SORT = "void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<at_cuda_detail::
 GATHER = "void at::native::_scatter_gather_elementwise_kernel<128, 8, at::native::_cuda_scatter_gather_internal_kernel<false, at::native::OpaqueType<4>, long>::operator()<at::native::TensorAssign>(at::TensorIterator&, long, long, long, at::native::TensorAssign const&)::{lambda(int)#1}>(int, at::native::_cuda_scatter_gather_internal_kernel<false, at::native::OpaqueType<4>, long>::operator()<at::native::TensorAssign>(at::TensorIterator&, long, long, long, at::native::TensorAssign const&)::{lambda(int)#1})"
 
 
+TOPK = "void (anonymous namespace)::topk_select_kernel<true, false>(float const*, int, unsigned int const*, int const*, int, int, int, int, int, unsigned int*, int*, int, float*, long*)"
+TOPK_FINAL = "void (anonymous namespace)::topk_select_kernel<false, true>(float const*, int, unsigned int const*, int const*, int, int, int, int, int, unsigned int*, int*, int, float*, long*)"
 COPY = "void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast<at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#3}::operator()() const::{lambda()#10}::operator()() const::{lambda(c10::BFloat16)#1}> >(int, at::native::gpu_kernel_impl_nocast<at::native::direct_copy_kernel_cuda(at::TensorIteratorBase&)::{lambda()#3}::operator()() const::{lambda()#10}::operator()() const::{lambda(c10::BFloat16)#1}> const&)"
 
 
@@ -55,11 +58,13 @@ def make_run(events=(), counters=None, busy_ms=None):
 
 
 # one batch of 128 images: 23 residual launches of 0.5 ms, 52 plain ones
-# of 0.25 ms, a sort of 4 ms and a gather of 1 ms, in 200 ms of busy time
+# of 0.25 ms, a sort of 4 ms and a gather of 1 ms, the top-K select's two
+# launches of 0.5 and 0.25 ms, in 200 ms of busy time
 BATCH = ([(RESIDUAL, k, k + 0.5) for k in range(23)]
          + [(PLAIN, 30 + k, 30.25 + k) for k in range(52)]
          + [(SORT, 100, 104), (GATHER, 104, 105),
-            ("Memset (Device)", 105, 106), (COPY, 106, 110)])
+            ("Memset (Device)", 105, 106), (COPY, 106, 110),
+            (TOPK, 110, 110.5), (TOPK_FINAL, 110.5, 110.75)])
 
 
 def want(name):
@@ -73,6 +78,8 @@ def want(name):
     if name == "v3_conv_epilogue_roofline":
         return (100.0 * 128 * counts_v3.epilogue_bytes(config, 608, False)[0]
                 / counts_v3.HBM_BYTES_PER_S / (52 * 0.25e-3))
+    if name == "detect.topk_ms":
+        return 0.75
     return 5.0
 
 
@@ -84,7 +91,8 @@ def test_reader_values(name):
 
 @pytest.mark.parametrize("name,empty", [(n, "no launches") for n in READERS]
                          + [("detect_v3_mfu", "no images"),
-                            ("detect_v3.select_ms", "no images")])
+                            ("detect_v3.select_ms", "no images"),
+                            ("detect.topk_ms", "no images")])
 def test_reader_reads_nothing(name, empty):
     """A program without the kernels (one older than the cell), or a
     window that finished no batch."""

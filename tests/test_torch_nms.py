@@ -1,6 +1,7 @@
 """The port's NMS and postprocess against yolojax: the plain greedy sweep
 equals, mask for mask, yolojax's lax sweep, its Pallas kernel (interpret
-mode) and the numpy oracle; top-K ties follow ``lax.top_k``."""
+mode) and the numpy oracle; top-K ties follow ``lax.top_k``; the top-K
+select's plain twin equals a stable descending sort bit for bit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,9 @@ from jax import lax
 from yolojax.postprocess import nms as jax_nms
 from yolojax_torch.ops.boxes import iou_matrix
 from yolojax_torch.postprocess import nms
+from yolojax_torch.kernels import ops
 from yolojax_torch.postprocess.cuda_nms import nms_greedy_cuda
+from yolojax_torch.postprocess.cuda_topk import MAX_K, topk_select_cuda
 
 from .unit.test_nms import _random_case, numpy_nms_oracle
 
@@ -236,3 +239,168 @@ def test_postprocess_v1_matches_jax():
     got = nms.postprocess_v1(torch.from_numpy(flat), s, b, c, **kw)
     assert got["keep"].sum() > 5
     _assert_same_detections(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the top-K select (csrc/topk_select.cu) and its plain twin
+# ---------------------------------------------------------------------------
+
+
+def _sorted_top(flat, k):
+    v, i = torch.sort(flat, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k]
+
+
+def _signed_zeros(rng):
+    x = rng.choice([-0.0, 0.0, 0.25, -0.25], (3, 700)).astype(np.float32)
+    return x, 96
+
+
+def _nans(rng):
+    x = rng.uniform(0, 1, (2, 5000)).astype(np.float32)
+    x[0, ::97] = np.nan
+    x[1, 3::11] = np.nan  # more NaNs than K: they fill the top alone
+    x[:, 5::13] = np.inf
+    return x, 128
+
+
+def _kth_ties(rng):
+    # 300 distinct scores above 0.5, then 1,000 copies of 0.5: the K-th
+    # value (K = 320) is tied, and only the first 20 copies are kept
+    x = rng.uniform(0, 0.4, (2, 6000)).astype(np.float32)
+    top = rng.choice(np.arange(6000), 1300, replace=False)
+    x[:, top[:300]] = rng.uniform(0.6, 1.0, 300).astype(np.float32)
+    x[:, top[300:]] = 0.5
+    return x, 320
+
+
+TOPK_CASES = {
+    "random": lambda r: (r.uniform(0, 1, (4, 3001)).astype(np.float32), 256),
+    "all_equal": lambda r: (np.full((2, 4096), 0.375, np.float32), 128),
+    # eight levels: runs of ties thousands long, across every slice
+    "eight_levels": lambda r: ((r.randint(0, 8, (3, 9000)) / 8).astype(
+        np.float32), 256),
+    "ties_at_kth": _kth_ties,
+    "signed_zeros": _signed_zeros,
+    "nan": _nans,
+    "negative": lambda r: (-r.exponential(1.0, (2, 2500)).astype(
+        np.float32), 200),
+    # fewer scores than K (the post-process clips K to M*C)
+    "fewer_than_k": lambda r: (r.uniform(0, 1, (2, 150)).astype(np.float32),
+                               150),
+    # M*C no multiple of any slice length, nor of 4
+    "ragged": lambda r: (r.uniform(-1, 1, (2, 2999)).astype(np.float32), 64),
+    "one_image": lambda r: (r.uniform(0, 1, (1, 16900)).astype(np.float32),
+                            256),
+    "k_1024": lambda r: ((r.randint(0, 64, (2, 30000)) / 64).astype(
+        np.float32), 1024),
+}
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7])
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_topk_select_twin_equals_stable_sort(case, slices):
+    """The twin repeats the kernel's steps (key map, per-slice floor and
+    histograms, k-th key, tie fill in index order, survivors' stable sort);
+    scores and indices equal the stable sort's, bit for bit, whatever the
+    first level's slice count."""
+    x, k = TOPK_CASES[case](np.random.RandomState(31))
+    flat = torch.from_numpy(x)
+    want_v, want_i = _sorted_top(flat, k)
+    got_v, got_i = nms.topk_select_torch(flat, k, slices)
+    assert got_i.dtype == torch.int64 and got_v.dtype == torch.float32
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+
+
+# every case but those lax.top_k may order otherwise than the stable sort:
+# NaN, and -0.0 beside +0.0
+TOPK_FINITE_CASES = sorted(set(TOPK_CASES) - {"nan", "signed_zeros"})
+
+
+@pytest.mark.parametrize("slices", [1, 3, 7])
+@pytest.mark.parametrize("case", TOPK_FINITE_CASES)
+def test_topk_select_twin_equals_lax_top_k(case, slices):
+    """On finite scores the twin's tie order is the reference's own:
+    indices and values equal yolojax's ``lax.top_k`` at the same inputs."""
+    x, k = TOPK_CASES[case](np.random.RandomState(31))
+    want_v, want_i = lax.top_k(jnp.asarray(x), k)
+    got_v, got_i = nms.topk_select_torch(torch.from_numpy(x), k, slices)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                  np.asarray(want_v).view(np.int32))
+
+
+@pytest.mark.parametrize("length,k,want", [
+    (1960, 128, [(1, 1960)]),
+    (16900, 256, [(1, 16900)]),
+    (851760, 256, [(35, 24336), (1, 8960)]),
+    (1819440, 256, [(75, 24260), (1, 19200)]),
+    (1819440, 1024, [(75, 24260), (4, 19200), (1, 4096)]),
+])
+def test_topk_plan_follows_the_shape(length, k, want):
+    """One level where a row fits one CTA (v1, v2), two for YOLOv3's rows:
+    slices of at most TOPK_MAX_SLICE keys, 16-byte aligned."""
+    plan = nms.topk_plan(length, k)
+    assert plan == want
+    assert all(ls <= nms.TOPK_MAX_SLICE for _, ls in plan)
+    assert all(ls % 4 == 0 for _, ls in plan[:-1])
+
+
+def test_select_candidates_takes_the_twin_on_the_cpu():
+    rng = np.random.RandomState(32)
+    corners = torch.from_numpy(rng.uniform(0, 1, (2, 40, 4)).astype(
+        np.float32))
+    scores = torch.from_numpy((rng.randint(0, 5, (2, 40, 3)) / 5).astype(
+        np.float32))
+    before = topk_select_cuda.launches
+    # K = 256 > M*C = 120: clipped to the 120 scores there are
+    boxes, top, classes, valid = nms._select_candidates(corners, scores,
+                                                        0.3, 256)
+    want_v, want_i = _sorted_top(scores.reshape(2, 120), 120)
+    assert torch.equal(top, want_v)
+    assert torch.equal(classes, want_i % 3)
+    assert torch.equal(boxes, torch.gather(
+        corners, 1, (want_i // 3)[..., None].expand(-1, -1, 4)))
+    assert torch.equal(valid, want_v > 0.3)
+    assert topk_select_cuda.launches == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("device,dtype,shape,k,error,match", [
+    ("cpu", torch.float64, (2, 64), 8, TypeError, "float32"),
+    ("cpu", torch.float16, (2, 64), 8, TypeError, "float32"),
+    ("cpu", torch.float32, (64,), 8, ValueError, "want scores"),
+    ("cpu", torch.float32, (2, 64), 65, ValueError, "outside"),
+    ("cpu", torch.float32, (2, 64), 0, ValueError, "outside"),
+    ("meta", torch.float32, (2, 4096), MAX_K + 1, ValueError, "> 1024"),
+    ("meta", torch.float32, (2, 4096), 256, ValueError, "CUDA device"),
+])
+def test_topk_wrapper_refusals(device, dtype, shape, k, error, match):
+    """What the kernel does not take raises; a tensor on neither the CPU
+    nor a card never reaches the twin, and K above MAX_K raises wherever
+    the kernel would run (a meta tensor stands in for the card here)."""
+    scores = torch.zeros(shape, dtype=dtype, device=device)
+    with pytest.raises(error, match=match):
+        topk_select_cuda(scores, k)
+
+
+def test_topk_wrapper_takes_large_k_on_the_cpu():
+    # the twin has no shared-memory limit: K above MAX_K runs on the CPU
+    flat = torch.from_numpy(np.random.RandomState(33).uniform(
+        0, 1, (1, 3000)).astype(np.float32))
+    got_v, got_i = topk_select_cuda(flat, 2000)
+    want_v, want_i = _sorted_top(flat, 2000)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+def test_topk_fake_implementation_shapes():
+    """The op's fake implementation (what torch.export traces): (N, k) f32
+    values and (N, k) int64 indices, on the input's device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        scores = torch.empty((5, 1819440))
+        vals, idx = ops.topk_select(scores, 256)
+        assert vals.shape == idx.shape == (5, 256)
+        assert vals.dtype == torch.float32 and idx.dtype == torch.int64
+        assert vals.device == scores.device

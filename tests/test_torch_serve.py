@@ -48,8 +48,14 @@ def _op_cases():
         np.float32)).bfloat16()
     shift = torch.from_numpy(rng.normal(0, 0.5, 125).astype(np.float32))
     inv = torch.from_numpy(rng.uniform(0.5, 1.5, 125).astype(np.float32))
+    # scores with ties and a -0.0 (NaN, which compares unequal to
+    # itself, is held bit for bit in tests/test_torch_nms.py)
+    scores = torch.from_numpy((rng.randint(0, 16, (3, 500)) / 16).astype(
+        np.float32))
+    scores[0, 7] = -0.0
     return {
         "nms_greedy": (ops.nms_greedy, (boxes, valid, 0.45)),
+        "topk_select": (ops.topk_select, (scores, 64)),
         "stem_fused": (ops.stem_fused, (x, wp, b)),
         # a column slice of a wider product, as the int8 trunk passes it
         "int8_requant": (ops.int8_requant,
@@ -74,7 +80,8 @@ def test_custom_op_opcheck(case):
 def test_custom_ops_are_the_plain_versions_on_the_cpu():
     from yolojax_torch.nn.stem import stem_fused_torch
     from yolojax_torch.postprocess.cuda_nms import nms_greedy_cuda
-    from yolojax_torch.postprocess.nms import nms_greedy_torch
+    from yolojax_torch.postprocess.cuda_topk import topk_select_cuda
+    from yolojax_torch.postprocess.nms import nms_greedy_torch, topk_select_torch
     from yolojax_torch.quantize.int8_ops import int8_requant_torch
 
     cases = _op_cases()
@@ -88,6 +95,12 @@ def test_custom_ops_are_the_plain_versions_on_the_cpu():
     args = cases["int8_requant_phases"][1]
     assert torch.equal(ops.int8_requant(*args), int8_requant_torch(*args))
     assert nms_greedy_cuda.launches == before  # no kernel on the CPU
+    scores, k = cases["topk_select"][1]
+    topk_before = topk_select_cuda.launches
+    for got, want in zip(ops.topk_select(scores, k),
+                         topk_select_torch(scores, k)):
+        assert torch.equal(got, want)
+    assert topk_select_cuda.launches == topk_before
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +142,8 @@ def _export(tiny, overrides, name):
 def test_roundtrip_exact(tiny, overrides):
     """The loaded artifact's outputs equal the live program's bit for bit
     on the CPU, and its graph holds the kernels' operators (the stem's
-    with ``fuse_stem``, the requant's with int8, NMS always)."""
+    with ``fuse_stem``, the requant's with int8, the top-K select and NMS
+    always)."""
     path, meta, infer_fn, net = _export(tiny, overrides, "m.yjts")
     assert meta["platforms"] == ["cpu"] and meta["payload_bytes"] > 1e6
     assert (meta["batch"], meta["dim"]) == (2, 64)
@@ -143,7 +157,8 @@ def test_roundtrip_exact(tiny, overrides):
     program = torch.export.load(_payload(path))
     targets = {str(n.target) for n in program.graph.nodes
                if "yolojax_torch" in str(n.target)}
-    want_ops = {"yolojax_torch.nms_greedy.default"}
+    want_ops = {"yolojax_torch.nms_greedy.default",
+                "yolojax_torch.topk_select.default"}
     if "detect.fuse_stem=pallas" in overrides:
         want_ops.add("yolojax_torch.stem_fused.default")
     if "detect.use_int8=1" in overrides:

@@ -10,15 +10,16 @@ artifact (``yolojax_torch/serve``) carries the kernels themselves: it runs
 them on the card and their plain versions on the CPU, as the live program
 does. The wrappers (``postprocess/cuda_nms.py``, ``nn/cuda_stem.py``,
 ``quantize/cuda_int8.py``, ``nn/cuda_epilogue.py``,
-``nn/cuda_bn_train.py``) check their arguments and call these operators;
-the launch counters stay on the wrappers and count only real launches.
+``nn/cuda_bn_train.py``, ``postprocess/cuda_topk.py``) check their
+arguments and call these operators; the launch counters stay on the
+wrappers and count only real launches.
 
 Importing this module registers the operators; it loads no CUDA library.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,7 +31,7 @@ from yolojax_torch.nn.layers import (
     epilogue_grad_sums_torch,
 )
 from yolojax_torch.nn.stem import stem_fused_torch
-from yolojax_torch.postprocess.nms import nms_greedy_torch
+from yolojax_torch.postprocess.nms import nms_greedy_torch, topk_select_torch
 from yolojax_torch.quantize.int8_ops import int8_requant_torch
 
 
@@ -52,6 +53,31 @@ def _nms_greedy_cuda(boxes, valid, iou_thresh):
 @nms_greedy.register_fake
 def _nms_greedy_fake(boxes, valid, iou_thresh):
     return valid.new_empty(valid.shape, dtype=torch.bool)
+
+
+@torch.library.custom_op("yolojax_torch::topk_select", mutates_args=(),
+                         device_types="cpu")
+def topk_select(scores: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-K: scores (N, L) f32 -> (values (N, k) f32, indices
+    (N, k) int64), a stable descending sort's first k columns. On the CPU
+    the kernel's twin gives the sort's bits, and in less time than the
+    sort at YOLOv3's rows (PERF.md §6)."""
+    return topk_select_torch(scores, k)
+
+
+@topk_select.register_kernel("cuda")
+def _topk_select_cuda(scores, k):
+    from yolojax_torch.postprocess.cuda_topk import launch
+
+    return launch(scores, k)
+
+
+@topk_select.register_fake
+def _topk_select_fake(scores, k):
+    n = scores.shape[0]
+    return (scores.new_empty((n, k)),
+            scores.new_empty((n, k), dtype=torch.int64))
 
 
 @torch.library.custom_op("yolojax_torch::stem_fused", mutates_args=(),

@@ -12,17 +12,22 @@ The greedy sweep exists twice with identical semantics:
     hand-written CUDA kernel (``csrc/nms_greedy.cu``), taken for every
     CUDA tensor unless ``use_pallas="never"`` asks for the plain sweep.
 
+So does the top-K select: :func:`topk_select_torch` (plain PyTorch, the
+CPU path) and :func:`yolojax_torch.postprocess.cuda_topk.topk_select_cuda`
+(``csrc/topk_select.cu``, every CUDA tensor). Both return what a stable
+descending sort returns in its first K columns: tied scores keep index
+order as ``lax.top_k`` does (``torch.topk`` does not).
+
 Per-class NMS in one pass: each candidate's corners are shifted by
 ``class_id * CLASS_OFFSET`` so boxes of different classes never overlap.
-Candidates are sorted by descending score with a stable sort, so tied
-scores keep index order as ``lax.top_k`` does (``torch.topk`` does not).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from yolojax_torch.ops.boxes import decode_v1, decode_v2, decode_v3, iou_matrix
 
@@ -30,6 +35,13 @@ CLASS_OFFSET = 4.0  # > any normalized box extent
 
 _USE_PALLAS = ("auto", "always", "never")
 _CANDIDATES = ("auto", "exact", "approx")
+
+# the top-K select's geometry (csrc/topk_select.cu): the keys one CTA holds
+# in shared memory, and its threads, whose load groups give the floor
+TOPK_MAX_SLICE = 24576
+TOPK_THREADS = 512
+# the select's three radix digits, most significant first: (shift, bits)
+_TOPK_DIGITS = ((21, 11), (10, 11), (0, 10))
 
 
 def nms_greedy_torch(boxes: torch.Tensor, valid: torch.Tensor,
@@ -66,6 +78,107 @@ def batched_nms(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     return nms_greedy_cuda(boxes, valid, iou_thresh)
 
 
+def score_keys(x: torch.Tensor) -> torch.Tensor:
+    """f32 scores -> int64 keys in [1, 2**32) in the order of a descending
+    stable sort: negatives below positives, -0.0 equal to +0.0, every NaN
+    above +inf. The kernel's 32-bit key; 0 is no score's key."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = u.masked_fill(u == 0x80000000, 0)
+    key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return key.masked_fill(torch.isnan(x), 0xFFFFFFFF)
+
+
+def topk_plan(length: int, k: int,
+              slices: Optional[int] = None) -> List[Tuple[int, int]]:
+    """The select's levels for rows of ``length`` scores: (slices, slice
+    length) each, the last (1, count). A row that fits one CTA is one
+    level; a longer one is cut into slices of at most
+    :data:`TOPK_MAX_SLICE` (``slices`` forces the first level's count),
+    and each level keeps min(k, slice) keys a slice for the next."""
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    plan, n = [], length
+    while True:
+        s = slices if slices is not None and not plan else ceil_div(
+            n, TOPK_MAX_SLICE)
+        ls = 4 * ceil_div(ceil_div(n, max(s, 1)), 4)  # 16-byte aligned
+        s = ceil_div(n, ls)
+        if s == 1:
+            return plan + [(1, n)]
+        plan.append((s, ls))
+        n = (s - 1) * k + min(k, n - (s - 1) * ls)
+
+
+def _topk_level(keys: torch.Tensor, idx: torch.Tensor, k: int, s: int,
+                ls: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level of the select over rows of keys (N, n) and their indices:
+    each slice's min(k, slice) largest keys by (key descending, index
+    ascending), in index order, the slices one after another."""
+    rows, n = keys.shape
+    kp = F.pad(keys, (0, s * ls - n)).view(rows, s, ls)  # 0: no key
+    ip = F.pad(idx, (0, s * ls - n)).view(rows, s, ls)
+    n_s = (n - torch.arange(s, device=keys.device) * ls).clamp(max=ls)
+    k_s = n_s.clamp(max=k)
+    # the floor: the k_s-th largest of the load groups' maxima cut to its
+    # top 22 bits, where a group (position // 4 modulo the CTA's threads)
+    # is one thread's loads
+    group = 4 * TOPK_THREADS
+    gp = F.pad(kp, (0, -ls % group)).view(rows, s, -1, TOPK_THREADS, 4)
+    maxima = gp.amax(dim=(2, 4)).sort(dim=-1, descending=True).values
+    at = (k_s - 1).clamp(max=TOPK_THREADS - 1).expand(rows, s)
+    kth = maxima.gather(-1, at[..., None])[..., 0] & ~0x3FF
+    floor = kth.where(k_s <= ((n_s + 3) // 4).clamp(max=TOPK_THREADS),
+                      1).clamp(min=1)
+    # the k_s-th largest key t by its three digits, and how many keys
+    # equal to t it takes (rem)
+    rem = k_s.expand(rows, s).clone()
+    prefix = keys.new_zeros((rows, s))
+    mask = 0
+    for shift, bits in _TOPK_DIGITS:
+        bins = 1 << bits
+        match = (kp >= floor[..., None]) & ((kp & mask) == prefix[..., None])
+        hist = keys.new_zeros((rows, s, bins)).scatter_add_(
+            2, (kp >> shift) & (bins - 1), match.long())
+        above = hist.flip(-1).cumsum(-1).flip(-1) - hist
+        hit = (above < rem[..., None]) & (above + hist >= rem[..., None])
+        b = hit.int().argmax(-1, keepdim=True)
+        rem = rem - above.gather(-1, b)[..., 0]
+        prefix = prefix | (b[..., 0] << shift)
+        mask |= (bins - 1) << shift
+    # survivors in index order: every key above t, then the first rem
+    # keys equal to t
+    gt = kp > prefix[..., None]
+    eq = kp == prefix[..., None]
+    keep = gt | (eq & (eq.cumsum(-1) - eq.long() < rem[..., None]))
+    at = torch.where(keep, keep.cumsum(-1) - 1, k)
+    out_k = kp.new_zeros((rows, s, k + 1)).scatter_(2, at, kp)[..., :k]
+    out_i = ip.new_zeros((rows, s, k + 1)).scatter_(2, at, ip)[..., :k]
+    count = (s - 1) * k + min(k, n - (s - 1) * ls)
+    return (out_k.reshape(rows, s * k)[:, :count],
+            out_i.reshape(rows, s * k)[:, :count])
+
+
+def topk_select_torch(scores: torch.Tensor, k: int,
+                      slices: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of ``csrc/topk_select.cu``: scores (N, L) f32 ->
+    (values (N, k) f32, indices (N, k) int64), equal to
+    ``torch.sort(scores, 1, descending=True, stable=True)``'s first k
+    columns. It repeats the kernel's steps: the key map, each level's
+    per-slice floor and digit histograms, the k-th key, the tie fill in
+    index order, and the survivors' stable sort. ``slices`` forces the
+    first level's slice count (the result does not depend on it)."""
+    n, length = scores.shape
+    keys = score_keys(scores)
+    idx = torch.arange(length, device=scores.device).expand(n, length)
+    for s, ls in topk_plan(length, k, slices):
+        keys, idx = _topk_level(keys, idx, k, s, ls)
+    order = torch.sort(keys, dim=1, descending=True, stable=True).indices
+    idx = idx.gather(1, order)
+    return scores.gather(1, idx), idx
+
+
 def _select_candidates(
     corners: torch.Tensor,  # (N, M, 4)
     scores: torch.Tensor,   # (N, M, C) conf * class prob
@@ -75,10 +188,11 @@ def _select_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-K (box, class) candidates per image, sorted by descending score.
 
-    Exact top-K by a stable descending sort: equal scores keep index
-    order, as ``lax.top_k`` orders them. ``candidates`` takes yolojax's
-    values; "approx" is a TPU-only selection and, as on yolojax's other
-    backends, every value resolves to exact.
+    Exact top-K, as a stable descending sort orders it: equal scores keep
+    index order, as ``lax.top_k`` orders them (``topk_select_cuda``: the
+    kernel for a CUDA tensor, its plain twin on the CPU). ``candidates``
+    takes yolojax's values; "approx" is a TPU-only selection and, as on
+    yolojax's other backends, every value resolves to exact.
     """
     if candidates not in _CANDIDATES:
         raise ValueError(f"candidates={candidates!r}: expected one of "
@@ -86,8 +200,9 @@ def _select_candidates(
     n, m, c = scores.shape
     flat = scores.reshape(n, m * c)
     top_k = min(top_k, m * c)
-    top_scores, top_idx = torch.sort(flat, dim=1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :top_k], top_idx[:, :top_k]
+    from yolojax_torch.postprocess.cuda_topk import topk_select_cuda
+
+    top_scores, top_idx = topk_select_cuda(flat, top_k)
     box_idx = top_idx // c
     cls_idx = top_idx % c
     top_boxes = torch.gather(corners, 1, box_idx[..., None].expand(-1, -1, 4))
